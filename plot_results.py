@@ -57,7 +57,7 @@ def plot_stack_of_cylinders():
                               ("y", "y_com", "zhang_t_y", "zhang_y")):
         fig, ax = plt.subplots(figsize=(5, 3.5))
         ax.plot(r[zt], r[zv], "s--", label="Experiment (Zhang)")
-        ax.plot(r["t"], r[sim], "-", label="Simulated (TPU)")
+        ax.plot(r["t"], r[sim], "-", label="Simulated")
         ax.set_xlabel("time [s]")
         ax.set_ylabel(f"{comp}/L")
         ax.legend()

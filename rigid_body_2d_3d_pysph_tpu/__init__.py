@@ -1,4 +1,4 @@
-"""TPU-native rigid-body / DEM / SPH-FSI particle framework.
+"""Accelerator-native rigid-body / DEM / SPH-FSI particle framework.
 
 A from-scratch JAX/XLA re-design of the capabilities of
 dineshadepu/rigid_body_2d_3d_pysph (which is built on PySPH's

@@ -5,7 +5,7 @@ Replaces PySPH's ``Application`` / ``Solver`` layer (reference usage:
 with dt/tf/pfreq at ``:129``, ``post_step`` wall-motion hook at
 ``code/stack_of_cylinders.py:438-445``).
 
-Key TPU-native difference: the hot loop runs in device-resident chunks
+Key difference from PySPH: the hot loop runs in device-resident chunks
 (``lax.scan`` over the fused jitted step — zero host round-trips inside a
 chunk), with host work (snapshots, scheduled events, overflow checks)
 only at chunk boundaries.  Reference-style ``post_step`` logic becomes
@@ -65,24 +65,17 @@ class Solver:
         os.makedirs(self.output_dir, exist_ok=True)
         path = os.path.join(self.output_dir,
                             f"snapshot_{self.count:06d}.npz")
-        # IO view: schemes with compact slot storage materialize their
-        # [N, S] fields here (identity otherwise).  The device->host
-        # transfer + npz write run on a background thread (JAX arrays
-        # are immutable, so the step loop keeps going while the worker
-        # fetches) — snapshot IO was ~35% of the flagship sinking-box
-        # wall time when serial.
+        # The device->host transfer + npz write run on a background
+        # thread (JAX arrays are immutable, so the step loop keeps going
+        # while the worker fetches).
         if os.environ.get("RB_SYNC_SNAPSHOTS"):
-            out_mod.write_snapshot(path,
-                                   self.scheme.export_scene(self.scene),
-                                   self.t, self.dt, self.count,
-                                   self.output_fields)
+            out_mod.write_snapshot(path, self.scene, self.t, self.dt,
+                                   self.count, self.output_fields)
         else:
             if self._writer is None:
                 self._writer = out_mod.AsyncSnapshotWriter()
-            self._writer.submit(path,
-                                self.scheme.export_scene(self.scene),
-                                self.t, self.dt, self.count,
-                                self.output_fields)
+            self._writer.submit(path, self.scene, self.t, self.dt,
+                                self.count, self.output_fields)
         self.output_files.append(path)
 
     def _overflowed(self) -> bool:
@@ -100,7 +93,6 @@ class Solver:
             if cp:
                 self.scene, self.t, done = ckpt_mod.load_checkpoint(
                     cp, self.scene)
-                self.scene = self.scheme.adapt_scene(self.scene)
                 self.count = done
                 if not quiet:
                     print(f"resumed from {cp} at step {done}", flush=True)
@@ -142,9 +134,6 @@ class Solver:
                         "neighbor capacity overflow persists after 8 grid "
                         "rebuilds — the scene is likely diverging")
                 self.scheme.refresh_configs(chunk_start, grow=rebuilds > 1)
-                # capacity-shaped scene state (e.g. the rigid compact
-                # slot store) must be re-sized with the configs
-                chunk_start = self.scheme.adapt_scene(chunk_start)
                 step = self.scheme.make_step(chunk_start)
                 multi = make_multi_step(step, self.pfreq)
                 self.scene = chunk_start

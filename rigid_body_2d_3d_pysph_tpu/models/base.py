@@ -23,6 +23,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from .. import config
 from ..ops import neighbors as nbmod
 from ..state.scene import Scene
 
@@ -35,6 +36,21 @@ class Scheme:
     #: The Solver's overflow-rebuild path raises it when a grid sized
     #: from one snapshot overflows as the simulation spreads.
     capacity_boost = 1.0
+
+    _engine: Optional[str] = None
+
+    @property
+    def engine(self) -> str:
+        """The pair engine this scheme runs (``config.ENGINES``):
+        ``config.select_engine()`` unless set explicitly.  Setting an
+        unknown engine raises."""
+        if self._engine is None:
+            self._engine = config.select_engine()
+        return self._engine
+
+    @engine.setter
+    def engine(self, name: str) -> None:
+        self._engine = config.check_engine(name)
 
     def add_user_options(self, group: argparse._ArgumentGroup) -> None:
         pass
@@ -63,17 +79,6 @@ class Scheme:
     def make_step(self, scene: Scene):
         raise NotImplementedError
 
-    def adapt_scene(self, scene: Scene) -> Scene:
-        """Align scheme-owned scene fields with the current configs
-        after a capacity rebuild (identity unless a scheme carries
-        capacity-shaped state, e.g. the rigid compact slot store)."""
-        return scene
-
-    def export_scene(self, scene: Scene) -> Scene:
-        """IO view of the scene (identity unless the scheme stores
-        state compactly)."""
-        return scene
-
     def refresh_configs(self, scene: Scene, grow: bool = False) -> None:
         """Drop every cached neighbor/cell-grid config so the next
         ``make_step`` re-sizes capacities from the CURRENT particle
@@ -86,8 +91,7 @@ class Scheme:
         re-jit of the step."""
         if grow:
             self.capacity_boost = float(self.capacity_boost) * 1.5
-        for attr in ("_nbr_cfg", "_cell_cfg", "_pallas_cfg",
-                     "_rowwin_cfg"):
+        for attr in ("_nbr_cfg", "_cell_cfg"):
             if getattr(self, attr, None) is not None:
                 setattr(self, attr, None)
 
@@ -162,12 +166,14 @@ class SchemeChooser(Scheme):
         # overflowing config forever
         return self.scheme.refresh_configs(scene, grow=grow)
 
-    def adapt_scene(self, scene):
-        # explicit: inherited identity would shadow the scheme's
-        return self.scheme.adapt_scene(scene)
+    @property
+    def engine(self):
+        # explicit: the inherited property would shadow the scheme's
+        return self.scheme.engine
 
-    def export_scene(self, scene):
-        return self.scheme.export_scene(scene)
+    @engine.setter
+    def engine(self, name):
+        self.scheme.engine = name
 
     @property
     def capacity_boost(self):

@@ -50,42 +50,8 @@ class DEMScheme(Scheme):
         self.dt = None
         self.tf = None
         self.pfreq = 100
-        # "pallas": fused DEM Pallas kernel (TPU production path);
-        # "cell": dense cell-block engine (portable, 10^5+ grains);
-        # "nklist": padded [N,K] lists (reference problem sizes).
-        # LVCForce runs on nklist only (dormant in the reference too).
-        from .rigid_body import _default_engine
-        self.engine = _default_engine()
-        # DEM-kernel grid: bins are cell_factor x the (tight, 2*rad_s)
-        # contact radius — coarser bins amortize the per-cell program +
-        # DMA cost over more lanes (the contact radius alone would give
-        # ~1 grain/cell).  Swept @104k grains on v5e with the spill
-        # grid + batched kernel (scripts/exp_dem_grid_sweep.py):
-        # (factor, M) -> ms/step: (4,16) 26.2, (6,16) 35.8, (5,16)
-        # 36.4, (8,32) 30.3, (4,8) 36.0 — factor 4 minimizes the
-        # packed stencil width (O=16, OM=256 candidate lanes/query).
-        # 3D (SWEEP_3D=1 @179k grains): coarse bins explode the
-        # 27-stencil's packed width — (4,16) 141, (3,16) 92, (2.5,16)
-        # 105, (2,8) 89.8, (1.5,8) 196 ms — so 3D defaults to
-        # (2.0, M=8).  A refinement sweep confirmed it is a
-        # quantization optimum: (1.8,8) 106 (more slots, same O=48),
-        # (2.2,8)/(2.4,8) 105/121 (O jumps 48 -> 96).
-        # ``cell_factor``/``cell_M`` remain overridable.
-        self.cell_factor = 4.0 if dim == 2 else 2.0
-        self.cell_M = None if dim == 2 else 8
-        # DEM Pallas grid layout: "spill" (the cell-keyed spillover
-        # grid, production default) or "rowwin" (row-window grid —
-        # sorted M=8 windows with run-granular source DMAs; ~3x fewer
-        # candidate pair lanes, but measured SLOWER end-to-end @104k on
-        # v5e: 33.4 vs 19.5 ms/step — the 18-column payload sort makes
-        # its build ~12 ms and M=8 rows starve the 8x128 vregs; kept as
-        # a selectable layout for narrow-cutoff workloads).
-        import os as _os
-        self.dem_grid = _os.environ.get("RB_DEM_GRID", "spill")
         self._nbr_cfg: Optional[nbmod.NeighborConfig] = None
         self._cell_cfg = None
-        self._pallas_cfg = None
-        self._rowwin_cfg = None
 
     def add_user_options(self, group):
         group.add_argument("--contact-model", dest="contact_model",
@@ -161,64 +127,13 @@ class DEMScheme(Scheme):
                 capacity_boost=self.capacity_boost)
         return self._cell_cfg
 
-    def pallas_cell_config(self, scene: Scene):
-        """Grid for the DEM Pallas kernel: cutoff = the exact contact
-        radius (2 max rad_s; interaction needs overlap > 0), bins
-        ``cell_factor`` x coarser (see __init__)."""
-        if self._pallas_cfg is None:
-            from ..ops import cellpairs as cellmod
-            cutoff = 2.0 * float(np.asarray(scene.rad_s).max())
-            self._pallas_cfg = cellmod.config_from_positions(
-                np.asarray(scene.x), np.asarray(scene.y),
-                np.asarray(scene.z), cutoff, self.dim,
-                cell_factor=self.cell_factor,
-                M=self.cell_M, spill=True,
-                capacity_boost=self.capacity_boost)
-        return self._pallas_cfg
-
-    def rowwin_config(self, scene: Scene):
-        """Row-window grid for the production DEM Pallas kernel (bins =
-        the exact contact radius; see ops/rowwin.py)."""
-        if self._rowwin_cfg is None:
-            from ..ops import rowwin as rwmod
-            cutoff = 2.0 * float(np.asarray(scene.rad_s).max())
-            self._rowwin_cfg = rwmod.rowwin_config_from_positions(
-                np.asarray(scene.x), np.asarray(scene.y),
-                np.asarray(scene.z), cutoff, self.dim,
-                capacity_boost=self.capacity_boost)
-        return self._rowwin_cfg
-
-    def _use_pallas(self):
-        if self.engine != "pallas" or self.contact_model != "LVCDisplacement":
-            return False
-        try:
-            on_tpu = jax.default_backend() == "tpu"
-        except Exception:
-            on_tpu = False
-        return on_tpu and config.float_dtype() == jnp.float32
-
     def make_step(self, scene: Scene):
         if self._nbr_cfg is None:
             kernel = get_kernel(self.kernel_name, self.dim)
             self._nbr_cfg = self.neighbor_config(scene, kernel.radius_scale)
         cfg = self._nbr_cfg
-        use_pallas = self._use_pallas()
-        use_cell = (not use_pallas and self.engine in ("cell", "pallas")
-                    and self.contact_model == "LVCDisplacement")
-        # LVCForce rides the dense XLA cell engine when a cell/pallas
-        # engine is requested (it shares lvc_force_core with the [N,K]
-        # list path; the Pallas kernel tier covers the production
-        # default LVCDisplacement only — LVCForce is dormant in the
-        # reference, code/dem.py:684-687 selects it but no case uses it)
-        use_cell_force = (self.engine in ("cell", "pallas")
-                          and self.contact_model == "LVCForce")
-        rowwin_cfg = (self.rowwin_config(scene)
-                      if use_pallas and self.dem_grid == "rowwin"
-                      else None)
-        cell_cfg = (None if rowwin_cfg is not None
-                    else self.pallas_cell_config(scene) if use_pallas
-                    else self.cell_config(scene)
-                    if (use_cell or use_cell_force) else None)
+        use_cell = self.engine == "cell"
+        cell_cfg = self.cell_config(scene) if use_cell else None
         gx, gy, gz = self.gx, self.gy, self.gz
         displacement = self.contact_model == "LVCDisplacement"
         kn, mu, en = self.kn, self.mu, self.en
@@ -247,36 +162,7 @@ class DEMScheme(Scheme):
             )
 
             # stage-2 equations: prune table, body force, LVC contact
-            if use_pallas and rowwin_cfg is not None:
-                from ..ops import pallas_dem as pdops
-                # prune is fused into the kernel's slot matching
-                (cfx, cfy, cfz, tx_, ty_, tz_, ti, td, ta, tb, tc,
-                 cnt, grid) = pdops.lvc_displacement_rowwin_pallas(
-                     scene, rowwin_cfg, dt,
-                     scene.tng_idx, scene.tng_idx_dem_id,
-                     scene.tng_x, scene.tng_y, scene.tng_z)
-                scene = scene.replace(tng_idx=ti, tng_idx_dem_id=td,
-                                      tng_x=ta, tng_y=tb, tng_z=tc,
-                                      total_tng_contacts=cnt,
-                                      nbr_overflow=(scene.nbr_overflow
-                                                    | grid.overflow))
-            elif use_pallas:
-                from ..ops import cellpairs as cellmod
-                from ..ops import pallas_dem as pdops
-                # prune is fused into the kernel's slot matching
-                grid = cellmod.build_cell_grid(scene.x, scene.y, scene.z,
-                                               scene.active, cell_cfg)
-                (cfx, cfy, cfz, tx_, ty_, tz_, ti, td, ta, tb, tc,
-                 cnt) = pdops.lvc_displacement_cell_pallas(
-                     scene, grid, cell_cfg, dt,
-                     scene.tng_idx, scene.tng_idx_dem_id,
-                     scene.tng_x, scene.tng_y, scene.tng_z)
-                scene = scene.replace(tng_idx=ti, tng_idx_dem_id=td,
-                                      tng_x=ta, tng_y=tb, tng_z=tc,
-                                      total_tng_contacts=cnt,
-                                      nbr_overflow=(scene.nbr_overflow
-                                                    | grid.overflow))
-            elif use_cell:
+            if use_cell and displacement:
                 from ..ops import cellpairs as cellmod
                 from ..ops import dem_cell as dcops
                 ti, td, ta, tb, tc, _ = dops.prune_contact_table(
@@ -292,7 +178,7 @@ class DEMScheme(Scheme):
                                       total_tng_contacts=cnt,
                                       nbr_overflow=(scene.nbr_overflow
                                                     | grid.overflow))
-            elif use_cell_force:
+            elif use_cell:
                 from ..ops import cellpairs as cellmod
                 from ..ops import dem_cell as dcops
                 ti, td, ta, tb, tc, _ = dops.prune_contact_table(

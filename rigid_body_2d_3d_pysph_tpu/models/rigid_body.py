@@ -38,10 +38,10 @@ from ..ops import contact as cops
 from ..ops import contact_cell as ccops
 from ..ops import rigid as rops
 
-# Batched 3x3 body-math einsums must run at HIGHEST precision: XLA
-# lowers DEFAULT f32 batched matmuls through the MXU with operands
-# truncated to bf16 (measured 2.4e-2 maxerr on O(1) rotation products;
-# mat-vec takes an exact VPU path).  B is tiny, so the cost is nil.
+# Every body-math einsum runs at HIGHEST precision: at DEFAULT, XLA:GPU
+# may run f32 matrix products in TF32 (a 10-bit mantissa), which rounds
+# O(1) rotation and inertia products at ~1e-3.  B is tiny, so exact f32
+# costs nothing.
 _PREC_EXACT = jax.lax.Precision.HIGHEST
 from ..ops import neighbors as nbmod
 from ..ops.kernels import get_kernel
@@ -64,20 +64,6 @@ SLOT_FIELDS = (
     "ti_x", "ti_y", "ti_z",
     "closest_point_dist_to_source",
 )
-
-
-def _default_engine() -> str:
-    """Fused Pallas kernel on TPU (falls back to the XLA cell engine for
-    f64/non-quintic configs), [N,K] lists on CPU (XLA:CPU prefers the
-    gather formulation).  Override with RB_TPU_ENGINE."""
-    import os
-    env = os.environ.get("RB_TPU_ENGINE")
-    if env:
-        return env
-    try:
-        return "pallas" if jax.default_backend() == "tpu" else "nklist"
-    except Exception:
-        return "cell"
 
 
 def _attach_contact_fields(scene: Scene) -> Scene:
@@ -170,11 +156,6 @@ class _RigidBodySchemeBase(Scheme):
         self.gx, self.gy, self.gz = gx, gy, gz
         self.kernel_name = "quintic"
         self.integrator = "gtvf"  # or "rk2" (reference RK2RigidBody3DStep)
-        # "pallas": fused Pallas pair kernel (TPU production path);
-        # "cell": dense cell-block XLA engine (bounded domain);
-        # "nklist": padded [N,K] neighbor lists (CPU-friendly, unbounded
-        # domains).  Default follows the platform.
-        self.engine = _default_engine()
         # Verlet skin as a fraction of the cutoff: > 0 widens the bins by
         # skin and rebuilds the grid only when some particle has moved
         # more than skin/2 since the last build.
@@ -207,7 +188,7 @@ class _RigidBodySchemeBase(Scheme):
         kernel = get_kernel(self.kernel_name, self.dim)
         if identify_boundaries:
             names = self.rigid_bodies + self.boundaries
-            if self.engine in ("cell", "pallas"):
+            if self.engine == "cell":
                 scene = run_boundary_identification_cell(
                     scene, kernel, self.cell_config(scene, kernel), names)
             else:
@@ -220,28 +201,10 @@ class _RigidBodySchemeBase(Scheme):
             scene = scene.replace(
                 contact_force_is_boundary=jnp.asarray(
                     cfib, config.float_dtype()))
-        if self.engine in ("cell", "pallas") and self.skin_factor > 0:
+        if self.engine == "cell" and self.skin_factor > 0:
             scene = attach_grid_fields(scene,
                                        self.cell_config(scene, kernel))
-        if self._compact_enabled():
-            cfg = self.cell_config(scene, kernel)
-            scene = compact_slot_scene(scene, self.ni_max(cfg) * cfg.M)
         return scene
-
-    def adapt_scene(self, scene: Scene) -> Scene:
-        """Align carried compact-store shapes with the current configs
-        (called by the Solver after an overflow-rebuild raised
-        capacities; scan carries need input == output shapes)."""
-        if "cl_pid" in scene and self._compact_enabled():
-            kernel = get_kernel(self.kernel_name, self.dim)
-            cfg = self.cell_config(scene, kernel)
-            return migrate_compact_scene(scene, self.ni_max(cfg) * cfg.M)
-        return scene
-
-    def export_scene(self, scene: Scene) -> Scene:
-        """IO view of the scene: [N, S] slot fields materialized from
-        the compact store (identity for full scenes)."""
-        return expand_slot_scene(scene)
 
     def set_linear_velocity(self, scene, vel):
         return rigid_setup.set_linear_velocity(scene, vel)
@@ -259,79 +222,27 @@ class _RigidBodySchemeBase(Scheme):
                 capacity_boost=self.capacity_boost)
         return self._cell_cfg
 
-    def _compact_enabled(self) -> bool:
-        """The compact slot-state path: Pallas GTVF sorted-pack engine
-        only (the configurations the TPU production step uses).
-        ``RB_NO_COMPACT=1`` forces the full [N, S] schema."""
-        import os
-        if os.environ.get("RB_NO_COMPACT"):
-            return False
-        if (self.engine != "pallas" or self.skin_factor > 0
-                or getattr(self, "integrator", "gtvf") != "gtvf"):
-            return False
-        try:
-            on_tpu = jax.default_backend() == "tpu"
-        except Exception:
-            return False
-        return (on_tpu and config.float_dtype() == jnp.float32
-                and self.kernel_name == "quintic")
-
-    def ni_max(self, cfg: cellmod.CellGridConfig) -> int:
-        """Static interesting-slot capacity for the compact pipeline:
-        enough for contact-dense small scenes (NI = NC), and a small
-        fraction of NC at scale (interest is surface-bound in lattice
-        scenes); the Solver's overflow-rebuild widens it via
-        capacity_boost when the cull finds more."""
-        nc = cfg.NC_max
-        ni = int(np.ceil(max(512, nc // 16) * self.capacity_boost))
-        return min(nc, ni)
-
-    def _cell_pipeline(self):
-        """Pair-pipeline for the cell layout: the Pallas kernel when
-        requested and supported (f32 + quintic), else the XLA fused
-        engine."""
-        if self.engine == "pallas":
-            try:
-                on_tpu = jax.default_backend() == "tpu"
-            except Exception:
-                on_tpu = False
-            if (on_tpu and config.float_dtype() == jnp.float32
-                    and self.kernel_name == "quintic"):
-                from ..ops import pallas_contact as pcops
-                return pcops.contact_pipeline_cell_pallas
-            # unsupported configuration: XLA fused engine (same physics)
-        return ccops.contact_pipeline_cell_fused
-
     # -- the fused step ---------------------------------------------------
     def make_step(self, scene: Scene):
         kernel = get_kernel(self.kernel_name, self.dim)
         params = dict(kr=self.kr, kf=self.kf, fric_coeff=self.fric_coeff,
                       gx=self.gx, gy=self.gy, gz=self.gz)
-        use_cell = self.engine in ("cell", "pallas")
+        use_cell = self.engine == "cell"
         cell_cfg = self.cell_config(scene, kernel) if use_cell else None
-        pipeline = self._cell_pipeline() if use_cell else None
         if not use_cell and self._nbr_cfg is None:
             self._nbr_cfg = self.neighbor_config(scene, kernel.radius_scale)
         if getattr(self, "integrator", "gtvf") == "rk2":
             return build_rigid_rk2_step(kernel, self._nbr_cfg, params,
-                                        self.two_d, cell_cfg=cell_cfg,
-                                        pipeline=pipeline)
+                                        self.two_d, cell_cfg=cell_cfg)
         if getattr(self, "integrator", "gtvf") == "leapfrog":
             if self.two_d:
                 raise ValueError("leapfrog stepper is 3D-only "
                                  "(reference rigid_body_3d.py:228)")
             return build_rigid_leapfrog_step(kernel, self._nbr_cfg, params,
-                                             cell_cfg=cell_cfg,
-                                             pipeline=pipeline)
-        if self.engine in ("cell", "pallas"):
-            cfg = self.cell_config(scene, kernel)
-            compact = self._compact_enabled() and "cl_pid" in scene
-            return build_rigid_gtvf_step_cell(
-                kernel, cfg, params, self.two_d,
-                pipeline=self._cell_pipeline(),
-                ni_max=self.ni_max(cfg) if compact else None)
-        if self._nbr_cfg is None:
-            self._nbr_cfg = self.neighbor_config(scene, kernel.radius_scale)
+                                             cell_cfg=cell_cfg)
+        if use_cell:
+            return build_rigid_gtvf_step_cell(kernel, cell_cfg, params,
+                                              self.two_d)
         return build_rigid_gtvf_step(kernel, self._nbr_cfg, params,
                                      self.two_d)
 
@@ -464,368 +375,13 @@ def rigid_contact_force_eval(scene, nbrs, kernel, params, dt,
 
 
 def rigid_contact_force_eval_cell(scene, grid, cell_cfg, kernel, params, dt,
-                                  extra_fx=None, pipeline=None):
+                                  extra_fx=None):
     """Stage-2 equation groups on the dense cell engine (same sequence as
-    :func:`rigid_contact_force_eval`).  ``pipeline`` selects the pair
-    engine (XLA fused by default; the Pallas kernel via engine="pallas")."""
-    if pipeline is None:
-        pipeline = ccops.contact_pipeline_cell_fused
-    cfn_x, cfn_y, cfn_z, cfn_w, dinfo = pipeline(
+    :func:`rigid_contact_force_eval`)."""
+    cfn_x, cfn_y, cfn_z, cfn_w, dinfo = ccops.contact_pipeline_cell_fused(
         scene, grid, cell_cfg, kernel)
     return _contact_force_tail(scene, cfn_x, cfn_y, cfn_z, cfn_w, dinfo,
                                params, dt, extra_fx)
-
-
-def rigid_contact_force_eval_sorted(scene, cell_cfg, kernel, params, dt,
-                                    extra_fx=None, interpret: bool = False):
-    """Stage-2 force evaluation on the sorted-pack Pallas fast path
-    (grid build + pack fused through the cell sort — the grid comes OUT
-    of the pipeline here).  Returns ``(scene, grid_overflow)``."""
-    from ..ops import pallas_contact as pcops
-    cfn_x, cfn_y, cfn_z, cfn_w, dinfo, grid = \
-        pcops.contact_pipeline_sorted_pallas(scene, cell_cfg, kernel,
-                                             interpret=interpret)
-    scene = _contact_force_tail(scene, cfn_x, cfn_y, cfn_z, cfn_w, dinfo,
-                                params, dt, extra_fx)
-    return scene, grid.overflow
-
-
-# cl_state column blocks (S columns each), in order: the 12
-# kernel-derived fields, then sorted(contact_force outputs).  The
-# persistent tangential springs (delta_lt_*, fn_*) are blocks 12..17.
-CL_FIELDS = (
-    "contact_force_normal_x", "contact_force_normal_y",
-    "contact_force_normal_z", "contact_force_normal_wij",
-    "contact_force_dist", "closest_point_dist_to_source",
-    "x_source", "y_source", "z_source",
-    "vx_source", "vy_source", "vz_source",
-    "delta_lt_x", "delta_lt_y", "delta_lt_z",
-    "fn_x", "fn_y", "fn_z",
-    "ft_x", "ft_y", "ft_z",
-    "overlap", "ti_x", "ti_y", "ti_z",
-)
-_CL_SPRING0 = 12  # first spring block
-
-
-def compact_slot_scene(scene: Scene, L: int) -> Scene:
-    """Convert a full scene to COMPACT slot-state storage: the 25
-    [N, S] contact-slot fields are replaced by ``cl_pid [L] i32``
-    (covered particle ids, n = empty) and ``cl_state [L, 25S] f32``
-    (their slot rows, CL_FIELDS block order).
-
-    Rationale: per-particle [N, S] materialization is the dominant cost
-    of the contact step at scale — S=9-minor arrays run ~4-8x off
-    bandwidth on the TPU's (8,128) vregs, and the full-path step spends
-    more time storing diagnostics than computing physics at 1M.  The
-    compact store writes one well-shaped [L, 25S] row block instead;
-    [N, S] views materialize lazily (``expand_slot_scene``) for IO,
-    checkpoints, the slab exchange, and tests.
-
-    Host-side (numpy).  The scene must be "virgin or expanded": a row
-    not representable in L slots raises."""
-    import numpy as np_
-
-    if "cl_pid" in scene:
-        return migrate_compact_scene(scene, L)
-    n, S = scene.n, scene.meta.total_no_bodies
-    fdt = scene.x.dtype
-    init_dist = 4.0 * scene.meta.spacing0
-    dev = np_.zeros(n, bool)
-    cols = []
-    for name in CL_FIELDS:
-        v = np_.asarray(scene[name])
-        base = init_dist if name == "closest_point_dist_to_source" else 0.0
-        # pre-first-eval scenes hold 0 in `closest` — equivalent (the
-        # value is never read before the first eval overwrites it)
-        dv = (v != base).any(axis=1)
-        if name == "closest_point_dist_to_source":
-            dv &= (v != 0.0).any(axis=1)
-        dev |= dv
-        cols.append(v)
-    idx = np_.nonzero(dev)[0]
-    if len(idx) > L:
-        raise ValueError(f"{len(idx)} occupied slot rows exceed the "
-                         f"compact capacity {L}")
-    cl_pid = np_.full(L, n, np_.int32)
-    cl_pid[: len(idx)] = idx
-    cl_state = np_.zeros((L, 25 * S), np_.float32)
-    for i, v in enumerate(cols):
-        cl_state[: len(idx), i * S:(i + 1) * S] = v[idx]
-    fields = {k: v for k, v in scene.fields.items() if k not in CL_FIELDS}
-    fields["cl_pid"] = jnp.asarray(cl_pid)
-    fields["cl_state"] = jnp.asarray(cl_state, fdt)
-    return type(scene)(fields, scene.meta)
-
-
-def migrate_compact_scene(scene: Scene, L: int) -> Scene:
-    """Pad (never shrink) the compact store to a new capacity after an
-    overflow-rebuild raised ni_max."""
-    L0 = scene.cl_pid.shape[0]
-    if L0 == L:
-        return scene
-    if L0 > L:
-        raise ValueError(f"compact capacity cannot shrink ({L0} -> {L})")
-    n = scene.n
-    pad_pid = jnp.full((L - L0,), n, jnp.int32)
-    pad_state = jnp.zeros((L - L0, scene.cl_state.shape[1]),
-                          scene.cl_state.dtype)
-    return scene.replace(
-        cl_pid=jnp.concatenate([scene.cl_pid, pad_pid]),
-        cl_state=jnp.concatenate([scene.cl_state, pad_state]))
-
-
-def expand_slot_scene(scene: Scene) -> Scene:
-    """Materialize the 25 [N, S] slot fields from the compact store
-    (non-covered rows are the init row: zeros, closest = init_dist).
-    Leaves cl_* in place; no-op for full scenes."""
-    if "cl_pid" not in scene:
-        return scene
-    n, S = scene.n, scene.meta.total_no_bodies
-    fdt = scene.cl_state.dtype
-    init_dist = 4.0 * scene.meta.spacing0
-    tgt = jnp.minimum(scene.cl_pid, n)
-    scat = jnp.zeros((n + 1, 25 * S), fdt).at[tgt].set(
-        scene.cl_state, mode="drop", unique_indices=True)[:n]
-    covered = jnp.zeros((n + 1,), bool).at[tgt].set(
-        True, mode="drop", unique_indices=True)[:n]
-    upd = {}
-    for i, name in enumerate(CL_FIELDS):
-        colv = scat[:, i * S:(i + 1) * S]
-        if name == "closest_point_dist_to_source":
-            colv = jnp.where(covered[:, None], colv,
-                             jnp.asarray(init_dist, fdt))
-        upd[name] = colv
-    return scene.with_fields(**upd)
-
-
-def strip_compact_fields(scene: Scene) -> Scene:
-    """Drop cl_* (after :func:`expand_slot_scene`) — for consumers that
-    carry the full [N, S] schema (the slab exchange)."""
-    if "cl_pid" not in scene:
-        return scene
-    fields = {k: v for k, v in scene.fields.items()
-              if k not in ("cl_pid", "cl_state")}
-    return type(scene)(fields, scene.meta)
-
-
-def blobify_slot_scene(scene: Scene) -> Scene:
-    """Replace the 25 [N, S] slot fields with ONE row-aligned
-    ``slot_blob [N, 25S]`` (CL_FIELDS block order) — the slab path's
-    slot-state layout: it rides the halo/redistribute exchanges like
-    any per-particle field, and the compact eval reads springs by a
-    plain row gather (the blob row IS the particle's row).
-
-    Convention: a row with no contact work is all-zero (including the
-    ``closest_point_dist_to_source`` block, which the full schema keeps
-    at init_dist — that value is write-only, never an input)."""
-    S = scene.meta.total_no_bodies
-    fdt = scene.x.dtype
-    cols = [jnp.asarray(scene[name], fdt) for name in CL_FIELDS]
-    blob = jnp.concatenate(cols, axis=1)
-    fields = {k: v for k, v in scene.fields.items() if k not in CL_FIELDS}
-    fields["slot_blob"] = blob
-    return type(scene)(fields, scene.meta)
-
-
-def deblobify_slot_scene(scene: Scene) -> Scene:
-    """Inverse of :func:`blobify_slot_scene` (tests / IO)."""
-    if "slot_blob" not in scene:
-        return scene
-    S = scene.meta.total_no_bodies
-    blob = scene.slot_blob
-    fields = {k: v for k, v in scene.fields.items() if k != "slot_blob"}
-    for i, name in enumerate(CL_FIELDS):
-        fields[name] = blob[:, i * S:(i + 1) * S]
-    return type(scene)(fields, scene.meta)
-
-
-def rigid_contact_force_eval_compact_blob(scene, cell_cfg, kernel, params,
-                                          dt, ni_max: int, extra_fx=None,
-                                          interpret: bool = False):
-    """Compact stage-2 eval for BLOB scenes (the slab local step): like
-    :func:`rigid_contact_force_eval_compact` but slot state lives in the
-    row-aligned ``slot_blob`` — springs come from a row gather at the
-    compacted pids (no inverse table), and the new blob is a full
-    rewrite (zeros + one row scatter), so ghost/stale rows need no
-    reset bookkeeping.  Returns ``(scene, overflow)``; force/torque are
-    LOCAL sums (the slab step psums them)."""
-    from ..ops import pallas_contact as pcops
-
-    out_c, pid, (u_c, v_c, w_c), grid, cull_ovf = \
-        pcops.contact_pipeline_compact_pallas(scene, cell_cfg, kernel,
-                                              ni_max, interpret=interpret)
-    n, S = scene.n, scene.meta.total_no_bodies
-    NI, M = pid.shape
-    L = NI * M
-    fdt = scene.x.dtype
-
-    flat = out_c.reshape(L, out_c.shape[-1]).astype(fdt)  # [L, Wp], free
-    blk = lambda i: flat[:, i * S:(i + 1) * S]
-    dinfo = dict(
-        contact_force_dist=blk(4),
-        closest_point_dist_to_source=blk(5),
-        x_source=blk(6), y_source=blk(7), z_source=blk(8),
-        vx_source=blk(9), vy_source=blk(10), vz_source=blk(11),
-    )
-
-    pidf = pid.reshape(L)
-    valid_lane = pidf < n
-    pclip = jnp.minimum(pidf, n - 1)
-    m_c = jnp.where(valid_lane, scene.m.at[pclip].get(mode="clip"), 0.0)
-    bid_c = jnp.where(valid_lane,
-                      scene.body_id.at[pclip].get(mode="clip"), 0)
-    spr_c = jnp.where(
-        valid_lane[:, None],
-        scene.slot_blob.at[pclip].get(
-            mode="clip")[:, _CL_SPRING0 * S:(_CL_SPRING0 + 6) * S],
-        0.0).astype(fdt)                                   # [L, 6S]
-
-    dfx, dfy, dfz, slots = cops.contact_force_core(
-        u_c.reshape(L).astype(fdt), v_c.reshape(L).astype(fdt),
-        w_c.reshape(L).astype(fdt), m_c, bid_c, scene.eta,
-        scene.meta.nb, scene.meta.spacing0, dt,
-        params["kr"], params["kf"], params["fric_coeff"],
-        blk(0), blk(1), blk(2), dinfo,
-        spr_c[:, 0:S], spr_c[:, S:2 * S], spr_c[:, 2 * S:3 * S],
-        spr_c[:, 3 * S:4 * S], spr_c[:, 4 * S:5 * S],
-        spr_c[:, 5 * S:6 * S])
-
-    tgt = jnp.where(valid_lane, pidf, n)
-    fxg, fyg, fzg = rops.body_force(scene, params["gx"], params["gy"],
-                                    params["gz"], scene.is_rigid)
-    dvec = jnp.stack([dfx, dfy, dfz], axis=1)
-    dxyz = jnp.zeros((n + 1, 3), fdt).at[tgt].set(
-        dvec, mode="drop", unique_indices=True)[:n]
-    fx = fxg + dxyz[:, 0]
-    fy = fyg + dxyz[:, 1]
-    fz = fzg + dxyz[:, 2]
-    if extra_fx is not None:
-        efx, efy, efz = extra_fx
-        fx, fy, fz = fx + efx, fy + efy, fz + efz
-    force, torque = rops.sum_up_external_forces(scene, fx, fy, fz)
-
-    new_rows = jnp.concatenate(
-        [flat[:, :12 * S]] + [slots[k] for k in CL_FIELDS[12:]],
-        axis=1).astype(fdt)                                # [L, 25S]
-    blob = jnp.zeros((n + 1, 25 * S), fdt).at[tgt].set(
-        new_rows, mode="drop", unique_indices=True)[:n]
-    scene = scene.replace(fx=fx, fy=fy, fz=fz, force=force, torque=torque,
-                          slot_blob=blob)
-    return scene, grid.overflow | cull_ovf
-
-
-def rigid_contact_force_eval_compact(scene, cell_cfg, kernel, params, dt,
-                                     ni_max: int, extra_fx=None,
-                                     interpret: bool = False):
-    """Stage-2 force evaluation on the COMPACT interesting-lane path.
-
-    The kernel output never leaves its compacted [NI_max, M, ·] layout:
-    the whole Eq.-24 tail (``ops.contact.contact_force_core``) runs on
-    the NI_max*M compacted lanes and the slot state is STORED compacted
-    (see :func:`compact_slot_scene`) — nothing [N, S]-shaped is ever
-    materialized.  Bit-parity with the full path holds because (a)
-    compacted lanes run the identical ops on identical values, and (b)
-    non-interesting lanes' full-path outputs are KNOWN constants (the
-    init row ⇒ engaged=False ⇒ zero forces / zero slot state /
-    closest = init_dist), which the compact representation encodes
-    implicitly.  The [N]-level force/torque reduction
-    (``sum_up_external_forces``) is unchanged, so body sums keep the
-    full path's summation order.
-
-    Returns ``(scene, overflow)`` — overflow covers the grid AND the
-    interesting-slot capacity (n_interesting > ni_max ⇒ the Solver's
-    overflow-rebuild re-sizes, like every static capacity here)."""
-    from ..ops import pallas_contact as pcops
-
-    out_c, pid, uvw, grid, cull_ovf = \
-        pcops.contact_pipeline_compact_pallas(scene, cell_cfg, kernel,
-                                              ni_max, interpret=interpret)
-    L = pid.shape[0] * pid.shape[1]
-    flat = out_c.reshape(L, out_c.shape[-1]).astype(scene.x.dtype)
-    scene = _compact_contact_tail(scene, flat, pid, *uvw,
-                                  params=params, dt=dt, extra_fx=extra_fx)
-    return scene, grid.overflow | cull_ovf
-
-
-def _compact_contact_tail(scene, flat, pid, u_c, v_c, w_c, params, dt,
-                          extra_fx=None):
-    """Eq.-24 tail + force assembly + compact slot store on compacted
-    lanes — shared by :func:`rigid_contact_force_eval_compact` and the
-    coupling scheme's fused kdkf step (whose F+C kernel computes the
-    same 12S contact blocks on the union pack).
-
-    ``flat``: [L, >=12S] f32 — the contact output blocks in
-    ``CL_FIELDS[:12]`` order; ``pid`` [NI, M] original particle ids
-    (n = empty); ``u_c/v_c/w_c`` [NI, M] query velocities."""
-    n, S = scene.n, scene.meta.total_no_bodies
-    L = flat.shape[0]
-    fdt = scene.x.dtype
-    blk = lambda i: flat[:, i * S:(i + 1) * S]
-    dinfo = dict(
-        contact_force_dist=blk(4),
-        closest_point_dist_to_source=blk(5),
-        x_source=blk(6), y_source=blk(7), z_source=blk(8),
-        vx_source=blk(9), vy_source=blk(10), vz_source=blk(11),
-    )
-
-    pidf = pid.reshape(L)
-    valid_lane = pidf < n
-    pclip = jnp.minimum(pidf, n - 1)
-    m_c = jnp.where(valid_lane, scene.m.at[pclip].get(mode="clip"), 0.0)
-    bid_c = jnp.where(valid_lane,
-                      scene.body_id.at[pclip].get(mode="clip"), 0)
-
-    # persistent tangential springs from LAST step's compact store:
-    # pid -> previous lane via a scatter-built inverse table, then one
-    # [L]-row gather of the spring blocks (out-of-capacity sentinel
-    # pids drop; uncovered particles read zero springs — exactly the
-    # full path's state)
-    prev_pid = scene.cl_pid
-    Lp = prev_pid.shape[0]
-    inv = jnp.full((n,), Lp, jnp.int32).at[prev_pid].set(
-        jnp.arange(Lp, dtype=jnp.int32), mode="drop",
-        unique_indices=True)
-    prev_lane = inv.at[pclip].get(mode="clip")
-    has_prev = valid_lane & (prev_lane < Lp)
-    spr_rows = scene.cl_state[:, _CL_SPRING0 * S:(_CL_SPRING0 + 6) * S]
-    spr_c = jnp.where(
-        has_prev[:, None],
-        spr_rows.at[jnp.minimum(prev_lane, Lp - 1)].get(mode="clip"),
-        0.0).astype(fdt)                                   # [L, 6S]
-
-    dfx, dfy, dfz, slots = cops.contact_force_core(
-        u_c.reshape(L).astype(fdt), v_c.reshape(L).astype(fdt),
-        w_c.reshape(L).astype(fdt), m_c, bid_c, scene.eta,
-        scene.meta.nb, scene.meta.spacing0, dt,
-        params["kr"], params["kf"], params["fric_coeff"],
-        blk(0), blk(1), blk(2), dinfo,
-        spr_c[:, 0:S], spr_c[:, S:2 * S], spr_c[:, 2 * S:3 * S],
-        spr_c[:, 3 * S:4 * S], spr_c[:, 4 * S:5 * S],
-        spr_c[:, 5 * S:6 * S])
-
-    # ---- per-particle force assembly --------------------------------
-    tgt = jnp.where(valid_lane, pidf, n)          # row n is sliced off
-    fxg, fyg, fzg = rops.body_force(scene, params["gx"], params["gy"],
-                                    params["gz"], scene.is_rigid)
-    dvec = jnp.stack([dfx, dfy, dfz], axis=1)                # [L, 3]
-    dxyz = jnp.zeros((n + 1, 3), fdt).at[tgt].set(
-        dvec, mode="drop", unique_indices=True)[:n]
-    fx = fxg + dxyz[:, 0]
-    fy = fyg + dxyz[:, 1]
-    fz = fzg + dxyz[:, 2]
-    if extra_fx is not None:
-        efx, efy, efz = extra_fx
-        fx, fy, fz = fx + efx, fy + efy, fz + efz
-    force, torque = rops.sum_up_external_forces(scene, fx, fy, fz)
-
-    # ---- new compact slot state (one [L, 25S] write) ----------------
-    new_state = jnp.concatenate(
-        [flat[:, :12 * S]] + [slots[k] for k in CL_FIELDS[12:]],
-        axis=1).astype(jnp.float32)
-    return scene.replace(
-        fx=fx, fy=fy, fz=fz, force=force, torque=torque,
-        cl_pid=jnp.where(valid_lane, pidf, n).astype(jnp.int32),
-        cl_state=new_state)
 
 
 def _contact_force_tail(scene, cfn_x, cfn_y, cfn_z, cfn_w, dinfo,
@@ -897,54 +453,18 @@ def _grid_for_step(scene: Scene, cell_cfg):
     return scene, grid
 
 
-def _is_pallas_pipeline(pipeline):
-    if pipeline is None:
-        return False
-    from ..ops import pallas_contact as pcops
-    return pipeline is pcops.contact_pipeline_cell_pallas
-
-
-def build_rigid_gtvf_step_cell(kernel, cell_cfg, params: dict, two_d: bool,
-                               pipeline=None, ni_max=None):
-    """GTVF timestep on the dense cell engine (the TPU production path).
-
-    With the Pallas pipeline on a spillover grid (and no Verlet skin),
-    the step takes the sorted-pack fast path: the pack fields ride the
-    grid build's cell sort and a Pallas kernel expands them straight
-    into the contact kernel's dfT layout — no [NC*M]-row gather, no
-    slot2p scatter, no XLA transpose (~37 ms of a 139 ms step at 1M).
-    With ``ni_max`` set (the default from the scheme) it further takes
-    the COMPACT path: kernel + Eq.-24 tail run only on the culled
-    interesting slots and per-particle state returns via one stacked
-    scatter (see :func:`rigid_contact_force_eval_compact`) — at 1M the
-    [N]-row unpack gather, re-expand and [N, S] tail disappear.
-    ``RB_NO_COMPACT=1`` forces the uncompacted sorted path."""
-    import os
-    use_sorted = (_is_pallas_pipeline(pipeline) and cell_cfg.spill
-                  and cell_cfg.skin <= 0.0)
-    use_compact = (use_sorted and ni_max is not None
-                   and not os.environ.get("RB_NO_COMPACT"))
+def build_rigid_gtvf_step_cell(kernel, cell_cfg, params: dict, two_d: bool):
+    """GTVF timestep on the dense cell engine."""
 
     @jax.jit
     def step(scene: Scene, dt):
         scene = _body_half_kick(scene, dt, two_d)
         scene = _particles_from_body_velocity(scene)
 
-        if use_compact:
-            scene, ovf = rigid_contact_force_eval_compact(
-                scene, cell_cfg, kernel, params, dt, ni_max)
-            scene = scene.replace(nbr_overflow=scene.nbr_overflow | ovf)
-        elif use_sorted:
-            scene, grid_ovf = rigid_contact_force_eval_sorted(
-                scene, cell_cfg, kernel, params, dt)
-            scene = scene.replace(nbr_overflow=scene.nbr_overflow | grid_ovf)
-        else:
-            scene, grid = _grid_for_step(scene, cell_cfg)
-            scene = rigid_contact_force_eval_cell(
-                scene, grid, cell_cfg, kernel, params, dt,
-                pipeline=pipeline)
-            scene = scene.replace(
-                nbr_overflow=scene.nbr_overflow | grid.overflow)
+        scene, grid = _grid_for_step(scene, cell_cfg)
+        scene = rigid_contact_force_eval_cell(scene, grid, cell_cfg, kernel,
+                                              params, dt)
+        scene = scene.replace(nbr_overflow=scene.nbr_overflow | grid.overflow)
 
         scene = _body_drift(scene, dt, two_d)
         scene = _particles_from_body_position(scene)
@@ -982,18 +502,16 @@ def build_rigid_gtvf_step(kernel, cfg: nbmod.NeighborConfig, params: dict,
     return step
 
 
-def _make_force_eval(kernel, params, nbr_cfg=None, cell_cfg=None,
-                     pipeline=None):
+def _make_force_eval(kernel, params, nbr_cfg=None, cell_cfg=None):
     """Engine-agnostic stage-2 force evaluation: (scene, dt) -> scene
-    with forces + overflow flag folded in.  Cell/Pallas engine when
+    with forces + overflow flag folded in.  Cell engine when
     ``cell_cfg`` is given, [N,K] lists otherwise — lets every stepper
-    (GTVF/RK2/leapfrog) ride the production pair engine."""
+    (GTVF/RK2/leapfrog) ride either pair engine."""
     if cell_cfg is not None:
         def ev(scene, dt):
             scene, grid = _grid_for_step(scene, cell_cfg)
             scene = rigid_contact_force_eval_cell(
-                scene, grid, cell_cfg, kernel, params, dt,
-                pipeline=pipeline)
+                scene, grid, cell_cfg, kernel, params, dt)
             return scene.replace(
                 nbr_overflow=scene.nbr_overflow | grid.overflow)
     else:
@@ -1040,17 +558,18 @@ def _rk2_body_stage(scene, frac_dt, two_d):
         ang_mom = scene.ang_mom0 + frac_dt * scene.torque
         out["inertia_tensor_inverse_global_frame"] = Iinv
         out["ang_mom"] = ang_mom
-        out["omega"] = jnp.einsum("bij,bj->bi", Iinv, ang_mom)
+        out["omega"] = jnp.einsum("bij,bj->bi", Iinv, ang_mom,
+                                  precision=_PREC_EXACT)
     return scene.replace(**out)
 
 
 def build_rigid_rk2_step(kernel, cfg, params: dict, two_d: bool,
-                         cell_cfg=None, pipeline=None):
+                         cell_cfg=None):
     """Predict-evaluate-correct RK2 timestep (reference
     ``RK2RigidBody3DStep`` wired through an EPEC-style sequence).
-    Runs on the cell/Pallas engine when ``cell_cfg`` is given."""
+    Runs on the cell engine when ``cell_cfg`` is given."""
     force_eval = _make_force_eval(kernel, params, nbr_cfg=cfg,
-                                  cell_cfg=cell_cfg, pipeline=pipeline)
+                                  cell_cfg=cell_cfg)
 
     @jax.jit
     def step(scene: Scene, dt):
@@ -1091,20 +610,19 @@ def _leapfrog_body_stage(scene, frac_dt):
                       scene.inertia_tensor_inverse_body_frame, R,
                       precision=_PREC_EXACT)
     ang_mom = scene.ang_mom0 + frac_dt * scene.torque
-    omega = jnp.einsum("bij,bj->bi", Iinv, ang_mom)
+    omega = jnp.einsum("bij,bj->bi", Iinv, ang_mom, precision=_PREC_EXACT)
     return scene.replace(xcm=xcm, vcm=vcm, R=R, ang_mom=ang_mom,
                          omega=omega,
                          inertia_tensor_inverse_global_frame=Iinv)
 
 
-def build_rigid_leapfrog_step(kernel, cfg, params: dict, cell_cfg=None,
-                              pipeline=None):
+def build_rigid_leapfrog_step(kernel, cfg, params: dict, cell_cfg=None):
     """Reference ``LeapFrogRigidBody3DStep`` under the GTVF sequencing
     (save -> half-advance with stored force -> force eval -> full
     advance from saved).  3D only, like the reference stepper.  Runs on
-    the cell/Pallas engine when ``cell_cfg`` is given."""
+    the cell engine when ``cell_cfg`` is given."""
     force_eval = _make_force_eval(kernel, params, nbr_cfg=cfg,
-                                  cell_cfg=cell_cfg, pipeline=pipeline)
+                                  cell_cfg=cell_cfg)
 
     @jax.jit
     def step(scene: Scene, dt):

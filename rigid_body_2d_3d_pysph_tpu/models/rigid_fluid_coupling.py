@@ -69,8 +69,7 @@ class RigidFluidCouplingScheme(Scheme):
         self.dim = dim
         # coerce to PYTHON floats: numpy scalars are strong-typed in JAX
         # promotion, so an np.float64 c0 would silently promote the f32
-        # Pallas kernels' math to f64 (a hard error in the kernel, a
-        # silent double-compute on the XLA path)
+        # step's math to f64
         self.rho0, self.p0, self.c0, self.gamma = (
             float(rho0), float(p0), float(c0), float(gamma))
         self.h = float(h)
@@ -82,9 +81,7 @@ class RigidFluidCouplingScheme(Scheme):
         self.beta = float(beta)
         self.edac = True
         self.edac_alpha = edac_alpha
-        from .rigid_body import _default_engine
         self.kernel_name = "quintic"
-        self.engine = _default_engine()  # "cell" (TPU) or "nklist" (CPU)
         # GTVF stage ordering.  "reference" reproduces the PySPH order
         # (rates at u_n pre-kick, momentum at p_n pre-drift — an
         # Adams-Bashforth-like staging of the acoustic subsystem);
@@ -98,9 +95,8 @@ class RigidFluidCouplingScheme(Scheme):
         # instability did not reproduce.  "kdkf" (round 4, the default)
         # is KDK with the grid/pack schedule fused: one grid build and
         # one pack per step, drift before the evaluations, thermo
-        # updates patched through the pack as dense column writes, and
-        # on TPU the four pair passes fused into TWO Pallas kernels
-        # (rates+wall, forces+contact).  Its wall sums sample source
+        # updates patched through the pack as dense column writes (cell
+        # engine; on nklist it runs as kdk).  Its wall sums sample source
         # rho/p pre-update — the reference's own staging; kdk samples
         # post-drift (tests/test_fluid_coupling.py pins the deviation).
         self.gtvf_ordering = "kdkf"
@@ -141,7 +137,7 @@ class RigidFluidCouplingScheme(Scheme):
                            default=None,
                            help="GTVF stage ordering: kdk (two-build "
                                 "kick-drift-kick), kdkf (fused one-grid "
-                                "KDK, the TPU fast path), reference "
+                                "KDK on the cell engine), reference "
                                 "(PySPH staging)")
 
     def consume_user_options(self, options):
@@ -181,7 +177,7 @@ class RigidFluidCouplingScheme(Scheme):
         kernel = get_kernel(self.kernel_name, self.dim)
         if identify_boundaries and (self.rigid_bodies or self.boundaries):
             names = self.rigid_bodies + self.boundaries
-            if self.engine in ("cell", "pallas"):
+            if self.engine == "cell":
                 from .rigid_body import run_boundary_identification_cell
                 scene = run_boundary_identification_cell(
                     scene, kernel, self.cell_config(scene, kernel), names)
@@ -193,51 +189,7 @@ class RigidFluidCouplingScheme(Scheme):
             cfib = np.asarray(scene.is_boundary).astype(np.float64)
             scene = scene.replace(
                 contact_force_is_boundary=jnp.asarray(cfib, fdt))
-        # compact slot storage pays when the [N, S] tail is wide —
-        # measured on v5e: S=2 (sinking box) runs ~3-7% FASTER on the
-        # full schema (the cull/gather overhead exceeds the tiny [N,2]
-        # tail), while wide-S scenes (stack of cylinders: S=34) and the
-        # rigid-only scheme win big.  Gate on S.
-        if self._compact_enabled() and scene.meta.total_no_bodies >= 8:
-            from .rigid_body import compact_slot_scene
-            cfg = self.cell_config(scene, kernel)
-            scene = compact_slot_scene(scene, self.ni_max(cfg) * cfg.M)
         return scene
-
-    def _compact_enabled(self) -> bool:
-        """Compact contact-slot storage for the fused kdkf step (same
-        rationale as the rigid scheme's: [N, S] slot materialization is
-        S=9-minor-shaped — far off bandwidth on TPU — and the contact
-        work is surface-sparse)."""
-        import os
-        if os.environ.get("RB_NO_COMPACT"):
-            return False
-        if (self.engine != "pallas" or self.gtvf_ordering != "kdkf"
-                or not self.rigid_bodies):
-            return False
-        try:
-            on_tpu = jax.default_backend() == "tpu"
-        except Exception:
-            return False
-        return (on_tpu and config.float_dtype() == jnp.float32
-                and self.kernel_name == "quintic")
-
-    def ni_max(self, cfg) -> int:
-        nc = cfg.NC_max
-        ni = int(np.ceil(max(512, nc // 16) * self.capacity_boost))
-        return min(nc, ni)
-
-    def adapt_scene(self, scene: Scene) -> Scene:
-        if "cl_pid" in scene and self._compact_enabled():
-            from .rigid_body import migrate_compact_scene
-            kernel = get_kernel(self.kernel_name, self.dim)
-            cfg = self.cell_config(scene, kernel)
-            return migrate_compact_scene(scene, self.ni_max(cfg) * cfg.M)
-        return scene
-
-    def export_scene(self, scene: Scene) -> Scene:
-        from .rigid_body import expand_slot_scene
-        return expand_slot_scene(scene)
 
     def set_linear_velocity(self, scene, vel):
         return rigid_setup.set_linear_velocity(scene, vel)
@@ -258,17 +210,9 @@ class RigidFluidCouplingScheme(Scheme):
                 capacity_boost=self.capacity_boost)
         return self._cell_cfg
 
-    # -- the fused step ---------------------------------------------------
-    def _cell_pipeline(self):
-        """Contact pair-pipeline for the cell layout (Pallas on TPU when
-        supported; XLA fused otherwise) — same logic as the rigid-body
-        scheme's selector."""
-        from .rigid_body import _RigidBodySchemeBase
-        return _RigidBodySchemeBase._cell_pipeline(self)
-
     def make_step(self, scene: Scene):
         if getattr(self, "fluid_stepper", "gtvf") == "rk2":
-            if self.engine not in ("cell", "pallas"):
+            if self.engine != "cell":
                 raise NotImplementedError("rk2 fluid stepper: cell engine")
             if self.edac:
                 raise NotImplementedError(
@@ -277,7 +221,7 @@ class RigidFluidCouplingScheme(Scheme):
                     "Tait EOS (edac=False)")
             return self._make_step_cell_rk2(scene)
         if self.gtvf_ordering == "kdkf":
-            if self.engine in ("cell", "pallas") and self.fluids:
+            if self.engine == "cell" and self.fluids:
                 return self._make_step_cell_kdkf(scene)
             # no fluids (or [N,K] engine): kdkf degenerates to kdk —
             # the fusion only changes the FLUID grid/pack schedule
@@ -287,7 +231,7 @@ class RigidFluidCouplingScheme(Scheme):
                 return self.make_step(scene)
             finally:
                 self.gtvf_ordering = saved
-        if self.engine in ("cell", "pallas"):
+        if self.engine == "cell":
             return self._make_step_cell(scene)
         return self._make_step_nklist(scene)
 
@@ -308,7 +252,6 @@ class RigidFluidCouplingScheme(Scheme):
         fluid_alpha = self.fluid_alpha
         has_fluid = len(self.fluids) > 0
         has_rigid = len(self.rigid_bodies) > 0
-        pipeline = self._cell_pipeline()
 
         def evaluate(scene, dt, fl, bd, rb, solid):
             """Rates + wall BC + momentum + contact at the current
@@ -360,8 +303,7 @@ class RigidFluidCouplingScheme(Scheme):
             if has_rigid:
                 extra = (ffx, ffy, ffz) if has_fluid else None
                 scene = rigid_contact_force_eval_cell(
-                    scene, grid, ccfg, kernel, params, dt,
-                    extra_fx=extra, pipeline=pipeline)
+                    scene, grid, ccfg, kernel, params, dt, extra_fx=extra)
             return scene, ovf
 
         def stage(scene, frac_dt, fl):
@@ -423,8 +365,7 @@ class RigidFluidCouplingScheme(Scheme):
 
         The two-build kdk step evaluates the density/pressure rates on a
         grid at x_n, drifts, then rebuilds at x_{n+1} for wall-BC /
-        momentum / contact — at 33k the second build plus the two extra
-        ``pack_fluid_pallas`` repacks are ~40% of the step.  Here the
+        momentum / contact, repacking the fluid fields each time.  Here the
         drift moves positions FIRST (x_{n+1} = x_n + dt u_{n+1/2} needs
         no pair sums), all four pair passes share the post-drift grid,
         and the thermodynamic state updates flow through the pack as
@@ -433,8 +374,8 @@ class RigidFluidCouplingScheme(Scheme):
           kick -> drift(x) -> build+pack -> rates -> patch rho,p ->
           wall BC -> patch p,p_fsi -> forces -> contact -> kick
 
-        The three passes' per-particle outputs leave dense space through
-        ONE combined 13-column unpack.  Staging note: the rates are
+        The passes' per-particle outputs leave dense space through ONE
+        combined 13-column unpack.  Staging note: the rates are
         evaluated at (u_{n+1/2}, x_{n+1}) where the two-build kdk uses
         (u_{n+1/2}, x_n) — both are consistent O(dt) stagings of the
         acoustic subsystem (reference itself uses (u_n, x_n),
@@ -451,198 +392,55 @@ class RigidFluidCouplingScheme(Scheme):
         c0, rho0, gamma = self.c0, self.rho0, self.gamma
         fluid_alpha = self.fluid_alpha
         has_rigid = len(self.rigid_bodies) > 0
-        pipeline = self._cell_pipeline()
-        from ..ops import pallas_contact as pcops
-        from ..ops import pallas_fluid as pfops
-        # fluid_pallas_interpret: test hook — run the Pallas fluid branch
-        # in interpret mode on CPU (the contact pipeline stays XLA) so
-        # the dense-patch wiring is exercised off-TPU
-        interp = bool(getattr(self, "fluid_pallas_interpret", False))
-        use_fluid_pallas = interp or \
-            pipeline is pcops.contact_pipeline_cell_pallas
-        NC = ccfg.NC_max
-
-        if use_fluid_pallas:
-            RHO, P, PFSI = pfops._FRHO, pfops._FP, pfops._FPFSI
-        else:
-            RHO, P, PFSI = fcops._FRHO, fcops._FP, fcops._FPFSI
-            FLU, BDR, RIG = fcops._IFLUID, fcops._IBDRY, fcops._IRIGID
-
-        S = scene.meta.total_no_bodies
-        init_dist = 4.0 * scene.meta.spacing0
-        # fused F+C layout: 12S contact columns, then the 6 force
-        # columns, zero-padded to a 128 multiple (pallas_fluid.
-        # fluid_forces_contact_pallas)
-        W12 = 12 * S
-        # compact contact tail: the F+C kernel's 12S contact columns are
-        # consumed only at culled interesting slots (union-flag cull)
-        # and the slot state stays in the cl_pid/cl_state compact store
-        # — no [N, 12S] unpack, no [N, S] tail (see rigid_body.
-        # _compact_contact_tail)
-        use_compact = (use_fluid_pallas and has_rigid
-                       and "cl_pid" in scene.fields)
-        ni = self.ni_max(ccfg) if use_compact else 0
+        RHO, P, PFSI = fcops._FRHO, fcops._FP, fcops._FPFSI
+        FLU, BDR, RIG = fcops._IFLUID, fcops._IBDRY, fcops._IRIGID
 
         def eval_passes(scene, dt):
             """Grid build + all fluid passes on one pack with dense
-            column patches between them.  Returns ``(grid, out,
-            contact)``: ``out`` the [N, 13] block (arho, ap, uf, vf,
-            wf, sw, p_num, au, av, aw, fx, fy, fz); ``contact`` the
-            contact-pipeline outputs (cfn_x/y/z, wij, dinfo) when the
-            fused Pallas F+C kernel ran them in the same sweep, else
-            None (caller runs the separate contact pipeline)."""
-            if use_fluid_pallas:
-                # sorted pack: the 14 fields ride the grid build's cell
-                # sort and a Pallas kernel expands them into dfT — no
-                # slot-major df, no [NC*M]-row pack gather
-                grid, dfT, sent, pt = pfops.pack_fluid_sorted(
-                    scene, ccfg, interpret=interp)
-                M = ccfg.M
-                one = jnp.float32(1.0)
-                _, _, sb_f, fl_f, rg_f = pfops._decode_flags(
-                    dfT[:NC, pfops._FFLAGS, :M])
-                fl_l = fl_f == one
-                bd_l = sb_f == one
-                rb_l = rg_f == one
-                dtf = jnp.asarray(dt, jnp.float32)
-
-                def patch(dfT, col, val):
-                    return dfT.at[:NC, col, :M].set(val)
-
-                rw_d = pfops.fluid_rates_wall_pallas(
-                    scene, grid, ccfg, kernel, None, dfT, nu_edac, c0,
-                    edac, has_rigid, gx, gy, gz, interpret=interp,
-                    dense=True, sent_slot=sent)           # [NC, M, 7]
-                rho_d = dfT[:NC, RHO, :M]
-                p_d = dfT[:NC, P, :M]
-                rho_new = jnp.where(fl_l, rho_d + dtf * rw_d[..., 0],
-                                    rho_d)
-                if edac:
-                    p_new = jnp.where(fl_l, p_d + dtf * rw_d[..., 1],
-                                      p_d)
-                else:
-                    B = jnp.float32(c0 * c0 * rho0 / gamma)
-                    p_new = jnp.where(
-                        fl_l,
-                        B * ((rho_new / jnp.float32(rho0))
-                             ** jnp.float32(gamma) - 1.0), p_d)
-                dfT = patch(dfT, RHO, rho_new)
-
-                sw_d = rw_d[..., 5]
-                has_d = sw_d > 1e-14
-                pbc_d = jnp.where(has_d,
-                                  rw_d[..., 6]
-                                  / jnp.where(has_d, sw_d, one),
-                                  rw_d[..., 6])
-                p2 = jnp.where(bd_l, jnp.maximum(pbc_d, 0.0), p_new)
-                pfsi2 = jnp.where(rb_l, pbc_d, dfT[:NC, PFSI, :M])
-                dfT = patch(dfT, P, p2)
-                dfT = patch(dfT, PFSI, pfsi2)
-
-                if has_rigid:
-                    # fused F+C: fluid forces AND the Mofidi contact
-                    # pipeline share one stencil sweep
-                    fc_d = pfops.fluid_forces_contact_pallas(
-                        scene, grid, ccfg, kernel, None, dfT,
-                        fluid_alpha, c0, has_rigid, S, init_dist,
-                        interpret=interp, sent_slot=sent)
-                    if use_compact:
-                        n = scene.n
-                        interesting, islot = \
-                            pcops._cull_rigid_query_slots(
-                                dfT, pt.slot_cid, ccfg, union=True)
-                        n_int = jnp.sum(interesting.astype(jnp.int32))
-                        covf = n_int > ni
-                        isl = islot[:ni]
-                        valid = isl < NC
-                        isl_c = jnp.clip(isl, 0, NC - 1)
-                        rows = fc_d.at[isl_c].get(mode="clip")
-                        flatc = rows.reshape(ni * M, fc_d.shape[-1])
-                        # per-lane pids from the sorted-pack tables
-                        base_c = jnp.where(
-                            valid, pt.base.at[isl_c].get(mode="clip"), n)
-                        cnt_c = jnp.where(
-                            valid, pt.cnt.at[isl_c].get(mode="clip"), 0)
-                        lanei = jnp.arange(M, dtype=jnp.int32)[None, :]
-                        sidx = jnp.clip(base_c[:, None] + lanei, 0,
-                                        max(n - 1, 0))
-                        pid = jnp.where(
-                            lanei < cnt_c[:, None],
-                            pt.sorted_pid.at[sidx].get(mode="clip"), n)
-                        qsel = jnp.where(valid, isl, sent)
-                        qI = dfT.at[qsel].get(mode="clip")
-                        uvw = (qI[:, 3, :M], qI[:, 4, :M], qI[:, 5, :M])
-                        big = jnp.concatenate(
-                            [rw_d, fc_d[..., W12:W12 + 6]], axis=-1)
-                        out = cellmod.unpack(grid, ccfg, big, scene.n,
-                                             0.0).astype(scene.x.dtype)
-                        return grid, out, ("compact", flatc, pid, uvw,
-                                           covf)
-                    big = jnp.concatenate([rw_d, fc_d], axis=-1)
-                    flat = cellmod.unpack(grid, ccfg, big, scene.n,
-                                          0.0).astype(scene.x.dtype)
-                    out = jnp.concatenate(
-                        [flat[:, :7], flat[:, 7 + W12:7 + W12 + 6]],
-                        axis=1)
-                    cp = flat[:, 7:7 + 12 * S].reshape(scene.n, 12, S)
-                    dinfo = dict(
-                        contact_force_dist=cp[:, 4],
-                        closest_point_dist_to_source=cp[:, 5],
-                        x_source=cp[:, 6], y_source=cp[:, 7],
-                        z_source=cp[:, 8], vx_source=cp[:, 9],
-                        vy_source=cp[:, 10], vz_source=cp[:, 11])
-                    return grid, out, (cp[:, 0], cp[:, 1], cp[:, 2],
-                                       cp[:, 3], dinfo)
-                force_d = pfops.fluid_forces_pallas(
-                    scene, grid, ccfg, kernel, None, dfT, fluid_alpha,
-                    c0, has_rigid, interpret=interp,
-                    dense=True, sent_slot=sent)           # [NC, M, 6]
-                dense_all = jnp.concatenate(
-                    [rw_d, force_d], axis=-1)
+            column patches between them.  Returns ``(grid, out)``:
+            ``out`` the [N, 13] block (arho, ap, uf, vf, wf, sw, p_num,
+            au, av, aw, fx, fy, fz)."""
+            grid = cellmod.build_cell_grid(scene.x, scene.y, scene.z,
+                                           scene.active, ccfg)
+            df, di = fcops.pack_fluid_scene(scene, grid, ccfg)
+            fl_l = di[:, :, FLU] == 1
+            bd_l = di[:, :, BDR] == 1
+            rb_l = di[:, :, RIG] == 1
+            arho_d, ap_d = fcops.fluid_rates_cell(
+                scene, grid, ccfg, kernel, df, di, nu_edac, c0,
+                edac, has_rigid, dense=True)
+            # wall sums on the PRE-update pack: the reference's staging
+            # (it runs its stage-2 wall BC before the drift updates rho/p)
+            uf_d, vf_d, wf_d, sw_d, pnum_d = fcops.wall_bc_cell(
+                scene, grid, ccfg, kernel, df, di, gx, gy, gz,
+                dense=True)
+            rho_d = df[:, :, RHO]
+            p_d = df[:, :, P]
+            rho_new = jnp.where(fl_l, rho_d + dt * arho_d, rho_d)
+            if edac:
+                p_new = jnp.where(fl_l, p_d + dt * ap_d, p_d)
             else:
-                grid = cellmod.build_cell_grid(scene.x, scene.y,
-                                               scene.z, scene.active,
-                                               ccfg)
-                df, di = fcops.pack_fluid_scene(scene, grid, ccfg)
-                fl_l = di[:, :, FLU] == 1
-                bd_l = di[:, :, BDR] == 1
-                rb_l = di[:, :, RIG] == 1
-                arho_d, ap_d = fcops.fluid_rates_cell(
-                    scene, grid, ccfg, kernel, df, di, nu_edac, c0,
-                    edac, has_rigid, dense=True)
-                # wall sums on the PRE-update pack: same staging as the
-                # fused Pallas R+W pass (and the reference, which runs
-                # its stage-2 wall BC before the drift updates rho/p)
-                uf_d, vf_d, wf_d, sw_d, pnum_d = fcops.wall_bc_cell(
-                    scene, grid, ccfg, kernel, df, di, gx, gy, gz,
-                    dense=True)
-                rho_d = df[:, :, RHO]
-                p_d = df[:, :, P]
-                rho_new = jnp.where(fl_l, rho_d + dt * arho_d, rho_d)
-                if edac:
-                    p_new = jnp.where(fl_l, p_d + dt * ap_d, p_d)
-                else:
-                    B = c0 * c0 * rho0 / gamma
-                    p_new = jnp.where(
-                        fl_l, B * ((rho_new / rho0) ** gamma - 1.0), p_d)
-                df = df.at[:, :, RHO].set(rho_new)
+                B = c0 * c0 * rho0 / gamma
+                p_new = jnp.where(
+                    fl_l, B * ((rho_new / rho0) ** gamma - 1.0), p_d)
+            df = df.at[:, :, RHO].set(rho_new)
 
-                has_d = sw_d > 1e-14
-                pbc_d = jnp.where(has_d,
-                                  pnum_d / jnp.where(has_d, sw_d, 1.0),
-                                  pnum_d)
-                p2 = jnp.where(bd_l, jnp.maximum(pbc_d, 0.0), p_new)
-                pfsi2 = jnp.where(rb_l, pbc_d, df[:, :, PFSI])
-                # forces read the patched pressures through their own
-                # dense operands (df's p column stays stale, unused)
-                outs = fcops.fluid_forces_cell(
-                    scene, grid, ccfg, kernel, df, di, p2, pfsi2,
-                    fluid_alpha, c0, has_rigid, dense=True)
-                dense_all = jnp.stack(
-                    [arho_d, ap_d, uf_d, vf_d, wf_d, sw_d, pnum_d]
-                    + list(outs), axis=-1)
+            has_d = sw_d > 1e-14
+            pbc_d = jnp.where(has_d,
+                              pnum_d / jnp.where(has_d, sw_d, 1.0),
+                              pnum_d)
+            p2 = jnp.where(bd_l, jnp.maximum(pbc_d, 0.0), p_new)
+            pfsi2 = jnp.where(rb_l, pbc_d, df[:, :, PFSI])
+            # forces read the patched pressures through their own
+            # dense operands (df's p column stays stale, unused)
+            outs = fcops.fluid_forces_cell(
+                scene, grid, ccfg, kernel, df, di, p2, pfsi2,
+                fluid_alpha, c0, has_rigid, dense=True)
+            dense_all = jnp.stack(
+                [arho_d, ap_d, uf_d, vf_d, wf_d, sw_d, pnum_d]
+                + list(outs), axis=-1)
             return grid, cellmod.unpack(grid, ccfg, dense_all, scene.n,
-                                        0.0).astype(scene.x.dtype), None
+                                        0.0).astype(scene.x.dtype)
 
         @jax.jit
         def step_kdkf(scene: Scene, dt):
@@ -672,7 +470,7 @@ class RigidFluidCouplingScheme(Scheme):
                 scene = _particles_from_body_position(scene)
 
             # ---- ONE grid + pack; rates -> thermo -> BC -> forces ----
-            grid, out, contact = eval_passes(scene, dt)   # [N, 13]
+            grid, out = eval_passes(scene, dt)   # [N, 13]
             ovf = scene.nbr_overflow | grid.overflow
             arho = jnp.where(fl, out[:, 0], 0.0)
             ap = jnp.where(fl, out[:, 1], 0.0)
@@ -715,21 +513,8 @@ class RigidFluidCouplingScheme(Scheme):
                 extra = (jnp.where(rb, out[:, 10], 0.0),
                          jnp.where(rb, out[:, 11], 0.0),
                          jnp.where(rb, out[:, 12], 0.0))
-                if contact is not None and isinstance(contact[0], str):
-                    from .rigid_body import _compact_contact_tail
-                    _, flatc, pid, uvw, covf = contact
-                    scene = _compact_contact_tail(
-                        scene, flatc, pid, *uvw, params=params, dt=dt,
-                        extra_fx=extra)
-                    ovf = ovf | covf
-                elif contact is not None:
-                    from .rigid_body import _contact_force_tail
-                    scene = _contact_force_tail(
-                        scene, *contact, params, dt, extra_fx=extra)
-                else:
-                    scene = rigid_contact_force_eval_cell(
-                        scene, grid, ccfg, kernel, params, dt,
-                        extra_fx=extra, pipeline=pipeline)
+                scene = rigid_contact_force_eval_cell(
+                    scene, grid, ccfg, kernel, params, dt, extra_fx=extra)
             scene = scene.replace(nbr_overflow=ovf)
 
             # ---- second half-kick with the fresh accelerations ----
@@ -759,19 +544,8 @@ class RigidFluidCouplingScheme(Scheme):
         fluid_alpha = self.fluid_alpha
         has_fluid = len(self.fluids) > 0
         has_rigid = len(self.rigid_bodies) > 0
-        pipeline = self._cell_pipeline()
-        from ..ops import pallas_contact as pcops
-        from ..ops import pallas_fluid as pfops
-        # fluid passes ride the Pallas scaffold exactly when the contact
-        # pipeline does (TPU + f32 + quintic)
-        use_fluid_pallas = pipeline is pcops.contact_pipeline_cell_pallas
 
         def run_rates(scene, grid):
-            if use_fluid_pallas:
-                df, dfT = pfops.pack_fluid_pallas(scene, grid, ccfg)
-                return pfops.fluid_rates_pallas(
-                    scene, grid, ccfg, kernel, df, dfT, nu_edac, c0, edac,
-                    has_rigid)
             df, di = fcops.pack_fluid_scene(scene, grid, ccfg)
             return fcops.fluid_rates_cell(
                 scene, grid, ccfg, kernel, df, di, nu_edac, c0, edac,
@@ -779,25 +553,12 @@ class RigidFluidCouplingScheme(Scheme):
 
         def run_wall_bc(scene, grid):
             """-> (uf, vf, wf, sw, p_num, ctx); ctx threads the packed
-            fields to run_forces on the XLA path."""
-            if use_fluid_pallas:
-                df, dfT = pfops.pack_fluid_pallas(scene, grid, ccfg)
-                return pfops.wall_bc_pallas(
-                    scene, grid, ccfg, kernel, df, dfT, gx, gy, gz) + (None,)
+            fields to run_forces."""
             df, di = fcops.pack_fluid_scene(scene, grid, ccfg)
             return fcops.wall_bc_cell(
                 scene, grid, ccfg, kernel, df, di, gx, gy, gz) + ((df, di),)
 
         def run_forces(scene, grid, ctx):
-            if use_fluid_pallas:
-                # repack so sources see the post-wall-BC p / p_fsi (a
-                # 2-column patch of the existing pack measures SLOWER
-                # than this full repack — gather row count dominates,
-                # not field width)
-                df, dfT = pfops.pack_fluid_pallas(scene, grid, ccfg)
-                return pfops.fluid_forces_pallas(
-                    scene, grid, ccfg, kernel, df, dfT, fluid_alpha, c0,
-                    has_rigid)
             df, di = ctx
             p_dense = pack_fields(grid, ccfg, [scene.p], [0.0])[..., 0]
             pfsi_dense = pack_fields(grid, ccfg, [scene.p_fsi],
@@ -896,7 +657,7 @@ class RigidFluidCouplingScheme(Scheme):
                                  jnp.where(rb, ffz, 0.0))
                     scene = rigid_contact_force_eval_cell(
                         scene, grid, ccfg, kernel, params, dt,
-                        extra_fx=extra, pipeline=pipeline)
+                        extra_fx=extra)
                 scene = scene.replace(nbr_overflow=ovf)
 
                 # ---- second half-kick with the fresh accelerations ----
@@ -979,8 +740,7 @@ class RigidFluidCouplingScheme(Scheme):
                              jnp.where(rb, ffy, 0.0),
                              jnp.where(rb, ffz, 0.0))
                 scene = rigid_contact_force_eval_cell(
-                    scene, grid, ccfg, kernel, params, dt, extra_fx=extra,
-                    pipeline=pipeline)
+                    scene, grid, ccfg, kernel, params, dt, extra_fx=extra)
 
             scene = scene.replace(
                 nbr_overflow=scene.nbr_overflow | grid.overflow)

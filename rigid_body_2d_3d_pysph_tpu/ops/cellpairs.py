@@ -1,11 +1,8 @@
-"""Dense cell-block pair engine — the TPU-fast neighbor path.
+"""Dense cell-block pair engine.
 
-Motivation (measured on TPU v5e): XLA per-element gathers cost ~7
-cycles/element, so the padded ``[N, K]`` neighbor-list formulation (one
-gather per source field per pair) runs ~100x off roofline.  Row-wise
-gathers (contiguous slices) are ~20x faster per element, and dense VPU
-math is essentially free.  This engine restructures every pair
-interaction accordingly:
+The padded ``[N, K]`` neighbor-list formulation (``neighbors.py``) does
+one per-element gather per source field per pair.  This engine replaces
+them with row gathers of whole cells and dense pair arithmetic:
 
 1. particles are binned into a *bounded* grid (origin/dims fixed at
    setup from the initial AABB + slack), sorted by cell, and packed into
@@ -20,11 +17,10 @@ interaction accordingly:
    ``[N]`` gather.
 
 The only remaining per-element operations are O(N) (sort keys, the
-dense-slot scatter, the final unpack) — negligible next to the O(N*K)
-pair work, which is now fully vectorized.
-
-This engine powers the production step; the ``neighbors.py`` [N, K] path
-remains for unbounded domains, tests, and the CPU oracle comparisons.
+dense-slot scatter, the final unpack); the O(N*K) pair work is dense.
+It evaluates more candidate lanes than there are true pairs
+(``[C, M, O*M]`` per block), so which of the two engines is faster
+depends on the device: ``config.select_engine`` holds the choice.
 """
 
 from __future__ import annotations
@@ -88,7 +84,6 @@ def config_from_positions(x, y, z, cutoff: float, dim: int,
                           sub: int = 1,
                           cell_chunk: int = 512,
                           skin: float = 0.0,
-                          cell_factor: float = 1.0,
                           spill: bool | None = None,
                           capacity_boost: float = 1.0) -> CellGridConfig:
     """Host-side: bound the domain from initial positions with ``slack``
@@ -96,10 +91,7 @@ def config_from_positions(x, y, z, cutoff: float, dim: int,
     occupied-cell count.  ``sub`` bins per cutoff trades a wider stencil
     ((2*sub+1)^dim cells) for tighter candidate sets.  ``skin`` widens
     the bins so the grid stays valid until any particle has moved more
-    than skin/2 since the build (Verlet-list reuse).  ``cell_factor``
-    >= 1 makes the bins COARSER than the cutoff (fewer cells, more
-    lanes per cell) — used by the DEM kernel, whose contact radius is
-    far smaller than a comfortable cell size.
+    than skin/2 since the build (Verlet-list reuse).
 
     ``capacity_boost`` scales every measured-occupancy slack factor
     (nc_factor, occupancy_safety, the spill stencil-width margin) —
@@ -110,7 +102,7 @@ def config_from_positions(x, y, z, cutoff: float, dim: int,
     nc_factor = nc_factor * capacity_boost
     occupancy_safety = occupancy_safety * capacity_boost
     slack = slack * capacity_boost
-    cell = float(cell_factor) * (float(cutoff) + float(skin)) / sub
+    cell = (float(cutoff) + float(skin)) / sub
     x = np.asarray(x); y = np.asarray(y); z = np.asarray(z)
     pts = [x, y] + ([z] if dim == 3 else [])
     lo = np.array([p.min() for p in pts])
@@ -134,20 +126,16 @@ def config_from_positions(x, y, z, cutoff: float, dim: int,
     uniq, counts = np.unique(cells, axis=0, return_counts=True)
     occ = counts.max()
     if spill is None:
-        # spill mode wins whenever worst-cell occupancy would force
-        # wide lanes.  Measured on v5e (scripts/exp_spill3d.py @146k,
-        # 27-stencil): spill+sorted-pack 65.6 ms vs classic M=104
-        # 75.6 ms — the classic 3D grid's wide lanes run ~60%
-        # utilization while spill keeps ~91% at M=16, so spill is the
-        # default in both 2D and 3D.
+        # spill mode keeps lanes narrow where the worst-cell occupancy
+        # would otherwise size M for every cell (quintic 3D cells hold
+        # ~60 particles, so the classic grid's lanes run mostly empty)
         spill = M is None and sub == 1
     if spill:
         if M is None:
             M = 16  # fixed lane width; occupancy growth costs SLOTS
         nsl = -(-counts // M)
         NC_max = max(64, int(np.ceil(nsl.sum() * nc_factor)))
-        # packed stencil width: worst initial stencil slot-sum + slack,
-        # rounded so O*M lands on a 128-lane boundary
+        # packed stencil width: worst initial stencil slot-sum + slack
         occmap = {tuple(c): int(s) for c, s in zip(uniq, nsl)}
         r = range(-sub, sub + 1)
         worst = 0
@@ -158,8 +146,6 @@ def config_from_positions(x, y, z, cutoff: float, dim: int,
             worst = max(worst, s)
         O_p = max(len(tuple(None for _ in r)) ** dim,
                   int(np.ceil(worst * 1.6 * capacity_boost)))
-        lane_q = max(1, 128 // M)
-        O_p = -(-O_p // lane_q) * lane_q
         return CellGridConfig(cell=cell, M=int(M), NC_max=NC_max,
                               origin=origin, dims=dims, dim=dim,
                               cell_chunk=cell_chunk, cutoff=float(cutoff),
@@ -182,20 +168,6 @@ class CellGrid(NamedTuple):
     nbr_slots: jax.Array  # [NC_max, O] neighbor cell slot; NC_max = none
     n_occupied: jax.Array  # scalar int32
     overflow: jax.Array   # scalar bool
-
-
-class PackTables(NamedTuple):
-    """Sorted-pack sidecar produced by :func:`build_cell_grid_packed`:
-    the pack fields already in cell-sorted order (carried through the
-    build's sort as payload operands — ~3 ms for 9 f32 fields at 1M on
-    v5e, vs ~25 ms for the equivalent [NC*M]-row random gather), plus
-    the per-slot expansion tables the Pallas pack kernel consumes."""
-    sorted_fields: tuple   # F arrays [N] f32, cell-sorted order
-    base: jax.Array        # [NC_max] sorted index of slot's first lane
-    cnt: jax.Array         # [NC_max] valid lanes in slot (0 for empty)
-    n_valid: jax.Array     # scalar int32: active in-domain particles
-    slot_cid: jax.Array    # [NC_max] linear cell id per slot (G empty)
-    sorted_pid: jax.Array  # [N] original particle index per sorted row
 
 
 def _cell_keys(x, y, z, active, cfg: CellGridConfig):
@@ -222,15 +194,10 @@ def _cell_keys(x, y, z, active, cfg: CellGridConfig):
 
 def _stencil_rows(table, qcells, stencil, dims, G, sentinel):
     """``table[q + off]`` for every stencil offset as ONE wide row
-    gather.
-
-    v5e row gathers cost ~14 ns per ROW nearly independent of row
-    width, so O separate [NC]-element gathers (one per stencil offset)
-    are ~O x the price of a single [NC]-row gather of O-wide rows.
-    Build the O shifted views of ``table`` as slices of a
-    sentinel-padded copy (sequential, bandwidth-bound), stack them
-    [G, O], and gather the query cells' rows once.  ``qcells == G``
-    rows (padding) come out all-sentinel."""
+    gather: the O shifted views of ``table`` are slices of a
+    sentinel-padded copy (sequential, bandwidth-bound), stacked [G, O],
+    and the query cells' rows are gathered once.  ``qcells == G`` rows
+    (padding) come out all-sentinel."""
     gx, gy, gz = dims
     offs = [dx_ + gx * (dy_ + gy * dz_) for (dx_, dy_, dz_) in stencil]
     maxoff = max(abs(o) for o in offs)
@@ -250,17 +217,16 @@ def build_cell_grid(x, y, z, active, cfg: CellGridConfig) -> CellGrid:
     key, dom_overflow, G = _cell_keys(x, y, z, active, cfg)
 
     idx = jnp.arange(n, dtype=jnp.int32)
-    # sort_key_val: sorted keys come out of the sort itself — key[order]
-    # as a separate 1M-element gather costs 10 ms on v5e
+    # sort_key_val: sorted keys come out of the sort itself (no separate
+    # key[order] gather)
     ks, order = jax.lax.sort_key_val(key, idx)
     valid_s = ks < G
 
     head = valid_s & jnp.concatenate(
         [jnp.ones(1, bool), ks[1:] != ks[:-1]])
     if cfg.spill:
-        grid, _ = _finish_spill_grid(cfg, n, G, ks, order, valid_s, head,
-                                     idx, dom_overflow)
-        return grid
+        return _finish_spill_grid(cfg, n, G, ks, order, valid_s, head, idx,
+                                  dom_overflow)
     cslot = jnp.cumsum(head.astype(jnp.int32)) - 1        # [N] sorted order
     n_occ = jnp.where(jnp.any(valid_s), cslot[-1] + 1, 0)
     cell_overflow = n_occ > cfg.NC_max
@@ -282,11 +248,8 @@ def build_cell_grid(x, y, z, active, cfg: CellGridConfig) -> CellGrid:
     dense_pos = jnp.full(n, cfg.NC_max * cfg.M, jnp.int32).at[
         jnp.where(slot_ok, order, n)].set(dense_pos_sorted, mode="drop")
 
-    # compact the occupied-cell heads to the front with a second sort —
-    # scatters on v5e cost a flat ~8.8 ms per 1M-update op regardless of
-    # masked-out rows, so an [N]-masked scatter into [NC_max] is 2x the
-    # price of this sort, and it shrinks the cell2slot scatter below
-    # from 1M updates to NC_max
+    # compact the occupied-cell heads to the front with a second sort,
+    # which shrinks the cell2slot scatter below from N updates to NC_max
     key2 = jnp.where(head, cslot, jnp.int32(2 ** 30))
     _, cid_sorted = jax.lax.sort_key_val(key2, ks)
     if n < cfg.NC_max:  # fewer particles than cell slots (small shards)
@@ -317,22 +280,14 @@ def build_cell_grid(x, y, z, active, cfg: CellGridConfig) -> CellGrid:
 
 
 def _finish_spill_grid(cfg: CellGridConfig, n, G, ks, order, valid_s,
-                       head, idx, dom_overflow, want_pack: bool = False,
-                       want_dense_pos: bool = True):
+                       head, idx, dom_overflow):
     """Slot-spillover layout: a cell with count > M particles occupies
     ceil(count/M) CONSECUTIVE dense slots (every M-th particle of a cell
     starts a new slot), so M stays a narrow fixed lane width and
     occupancy growth costs slots instead of lanes.  The stencil table
     packs, per cell, the slot RUNS of its 9/27 neighbor cells into
     ``cfg.nbr_width`` entries (sentinel-tail padded); every slot of a
-    cell shares its cell's row.
-
-    ``want_pack``: additionally emit the per-slot sorted-order expansion
-    tables (base, cnt) for the Pallas pack kernel, compute dense_pos by
-    a sort instead of a scatter (a [N]-update scatter costs a flat
-    ~8.8 ms/1M on v5e; the sort ~4 ms), and skip slot2p entirely (the
-    sorted pack path never gathers through it).  Returns
-    ``(CellGrid, (base, cnt, n_valid) | None)``."""
+    cell shares its cell's row."""
     M = cfg.M
     NC = cfg.NC_max
     O_p = cfg.O
@@ -350,36 +305,23 @@ def _finish_spill_grid(cfg: CellGridConfig, n, G, ks, order, valid_s,
     slot_ok = valid_s & (vslot < NC)
     dense_pos_sorted = jnp.where(
         slot_ok, jnp.clip(vslot, 0, NC - 1) * M + lane, NC * M)
-    if want_pack:
-        slot2p = jnp.zeros((0,), jnp.int32)   # unused on the sorted path
-        if want_dense_pos:
-            _, dense_pos = jax.lax.sort_key_val(order, dense_pos_sorted)
-        else:
-            # the compact pipeline never unpacks through dense_pos —
-            # skipping this sort saves ~3 ms at 1M on v5e
-            dense_pos = jnp.zeros((0,), jnp.int32)
-    else:
-        slot2p = jnp.full(NC * M + 1, n, jnp.int32).at[
-            dense_pos_sorted].set(order.astype(jnp.int32), mode="drop",
-                                  unique_indices=True)[: NC * M]
-        dense_pos = jnp.full(n, NC * M, jnp.int32).at[
-            jnp.where(slot_ok, order, n)].set(dense_pos_sorted, mode="drop")
+    slot2p = jnp.full(NC * M + 1, n, jnp.int32).at[
+        dense_pos_sorted].set(order.astype(jnp.int32), mode="drop",
+                              unique_indices=True)[: NC * M]
+    dense_pos = jnp.full(n, NC * M, jnp.int32).at[
+        jnp.where(slot_ok, order, n)].set(dense_pos_sorted, mode="drop")
 
     # compact occupied cells to the front: (cid, base slot); a cell's
     # slot count is the base DIFFERENCE to the next occupied cell, so no
     # per-cell count scan is needed
     n_cells = jnp.sum(head.astype(jnp.int32))
     key2 = jnp.where(head, vslot, jnp.int32(2 ** 30))
-    comp_ops = (key2, ks, vslot) + ((idx,) if want_pack else ())
-    comp = jax.lax.sort(comp_ops, num_keys=1)
+    comp = jax.lax.sort((key2, ks, vslot), num_keys=1)
     cid_c, base_c = comp[1], comp[2]
-    sst_c = comp[3] if want_pack else None  # sorted start of each cell
     if n < NC:
         padi = jnp.full(NC - n, G, jnp.int32)
         cid_c = jnp.concatenate([cid_c, padi])
         base_c = jnp.concatenate([base_c, jnp.zeros(NC - n, jnp.int32)])
-        if want_pack:
-            sst_c = jnp.concatenate([sst_c, jnp.zeros(NC - n, jnp.int32)])
     iota_nc = jnp.arange(NC, dtype=jnp.int32)
     cellmask = iota_nc < jnp.minimum(n_cells, NC)
     occ_cid = jnp.where(cellmask, cid_c[:NC], G)
@@ -398,12 +340,8 @@ def _finish_spill_grid(cfg: CellGridConfig, n, G, ks, order, valid_s,
     packed = jnp.full(G + 1, NC * SH, jnp.int32).at[occ_cid].set(
         occ_base * SH + jnp.minimum(occ_nsl, SH - 1), mode="drop")[:G]
 
-    # packed per-CELL stencil table [NC, O9].  v5e row gathers are
-    # LATENCY-bound (~14 ns/row independent of row width), so one
-    # gather of [NC] O9-wide rows beats O9 gathers of [NC] scalar rows
-    # ~O9-fold (~8 ms -> ~1 ms at 1M/2D).  Build the shifted views
-    # packed[g + off] as sentinel-padded SLICES (bandwidth-bound),
-    # stack, gather once at the occupied cells.
+    # packed per-CELL stencil table [NC, O9]: one gather of [NC]
+    # O9-wide rows (see _stencil_rows) at the occupied cells.
     pv_all = _stencil_rows(packed, occ_cid, stencil, (gx, gy, gz), G,
                            jnp.int32(NC * SH))            # [NC, O9]
     nb_base = pv_all // SH
@@ -430,72 +368,10 @@ def _finish_spill_grid(cfg: CellGridConfig, n, G, ks, order, valid_s,
     s2c = cell2slot_expand(iota_nc)
     nbr_slots = tbl[s2c]                                 # [NC, O_p]
 
-    grid = CellGrid(slot2p=slot2p, dense_pos=dense_pos,
+    return CellGrid(slot2p=slot2p, dense_pos=dense_pos,
                     nbr_slots=nbr_slots, n_occupied=n_occ,
                     overflow=(dom_overflow | cap_overflow | spill_ovf
                               | spill_deep))
-    if not want_pack:
-        return grid, None
-
-    # ---- per-slot expansion tables for the Pallas pack kernel ----------
-    # slot s of cell c covers sorted rows [sst[c] + (s - occ_base[c])*M,
-    # .. + cnt).  Both per-cell quantities expand to slots via the
-    # scatter+cummax trick: M*occ_base - sst is nondecreasing over cells
-    # (each cell's slot run covers at least its particle count), and the
-    # cell-end sorted index is nondecreasing trivially.
-    n_valid = jnp.sum(valid_s.astype(jnp.int32)).astype(jnp.int32)
-    occ_sst = jnp.where(cellmask, sst_c[:NC], 0)
-    sst_ext = jnp.concatenate([sst_c[1:NC + 1],
-                               jnp.zeros(1, jnp.int32)])[:NC]
-    cell_end = jnp.where(iota_nc + 1 < jnp.minimum(n_cells, NC),
-                         sst_ext, n_valid)               # per-cell end
-    negA = cell2slot_expand(M * occ_base - occ_sst)
-    end_s = cell2slot_expand(cell_end)
-    base_slot = M * iota_nc - negA
-    valid_slot = iota_nc < jnp.minimum(n_occ, NC)
-    cnt_slot = jnp.clip(end_s - base_slot, 0, M)
-    # empty slots: a zero-lane window at the end of the sorted range
-    # (keeps the pack kernel's window-monotonicity invariant)
-    base_slot = jnp.where(valid_slot, base_slot, n_valid)
-    cnt_slot = jnp.where(valid_slot, cnt_slot, 0)
-    # per-slot linear cell id (for the interest-culling tables):
-    # occ_cid is ascending over compacted cells, so the cummax expand
-    # is exact; empty tail slots get the G sentinel
-    slot_cid = jnp.where(valid_slot, cell2slot_expand(occ_cid), G)
-    return grid, (base_slot, cnt_slot, n_valid, slot_cid)
-
-
-def build_cell_grid_packed(x, y, z, active, cfg: CellGridConfig, payload,
-                           want_dense_pos: bool = True):
-    """Spillover grid build that carries ``payload`` (a list of [N]
-    arrays, cast to f32) through the cell sort, for the Pallas pack
-    kernel (``ops.pallas_pack``): returns ``(CellGrid, PackTables)``.
-
-    The returned grid is identical to :func:`build_cell_grid`'s except
-    ``slot2p`` is empty (size 0) — the sorted-pack path never gathers
-    rows through it, and skipping its [NC*M]-update scatter saves
-    ~9 ms at 1M particles on v5e."""
-    if not cfg.spill:
-        raise ValueError("build_cell_grid_packed requires a spillover "
-                         "grid (cfg.spill=True)")
-    n = x.shape[0]
-    key, dom_overflow, G = _cell_keys(x, y, z, active, cfg)
-    idx = jnp.arange(n, dtype=jnp.int32)
-    ops = (key,) + tuple(jnp.asarray(p, jnp.float32) for p in payload) \
-        + (idx,)
-    res = jax.lax.sort(ops, num_keys=1)
-    ks, order = res[0], res[-1]
-    sorted_fields = res[1:-1]
-    valid_s = ks < G
-    head = valid_s & jnp.concatenate(
-        [jnp.ones(1, bool), ks[1:] != ks[:-1]])
-    grid, pack = _finish_spill_grid(cfg, n, G, ks, order, valid_s, head,
-                                    idx, dom_overflow, want_pack=True,
-                                    want_dense_pos=want_dense_pos)
-    base, cnt, n_valid, slot_cid = pack
-    return grid, PackTables(sorted_fields=sorted_fields, base=base,
-                            cnt=cnt, n_valid=n_valid, slot_cid=slot_cid,
-                            sorted_pid=order.astype(jnp.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -527,20 +403,13 @@ def unpack(grid: CellGrid, cfg: CellGridConfig, dense, n: int, fill=0.0):
     """Dense [NC_max, M, R...] -> per-particle [N, R...] (original order).
 
     The gather runs in fill mode (sentinel ``dense_pos`` rows land on
-    ``fill``) behind an optimization barrier: without the barrier XLA
-    fuses the gather into its elementwise producers and re-evaluates
-    them per gathered element — measured 42 -> 117 ms for the Pallas
-    epilogue at 1M particles on v5e."""
+    ``fill``) between optimization barriers: without the first, XLA may
+    fuse the gather into its elementwise producers and re-evaluate them
+    per gathered element; the second keeps downstream reshapes from
+    fusing into the fill-mode gather."""
     flat = dense.reshape((cfg.NC_max * cfg.M,) + dense.shape[2:])
     flat = jax.lax.optimization_barrier(flat)
     out = flat.at[grid.dense_pos].get(mode="fill", fill_value=fill)
-    # barrier the RESULT too: fusing a reshape/slice into this fill-mode
-    # gather miscompiles on v5e (observed on the 3D fused engine's
-    # [NC*M, 108] unpack: every row came out as fill once the caller
-    # reshaped [n, 108] -> [n, S, 12]; scripts/dbg_unpack_reshape.py
-    # isolates it — reshape-after-gather wrong, barrier-then-reshape
-    # exact).  The barrier pins the gather's own layout so downstream
-    # reshapes cannot fuse into it.
     return jax.lax.optimization_barrier(out)
 
 
@@ -586,13 +455,7 @@ def gather_source_block(dense, nbr_slots_block, cfg: CellGridConfig,
     """[NC_max, M, F] sources for a block's stencil: [C, O, M, F] via row
     gathers.  ``sentinel_row`` ([M, F] or scalar) fills missing-neighbor
     cells — it MUST make downstream gates false (e.g. far-away positions),
-    zeros are only safe for pure accumulators.
-
-    TPU note: this 3D-slice gather is efficient at the chunked sizes the
-    XLA engines use (C <= cell_chunk rows) but lowers pathologically at
-    full-grid 1M scale (281 ms for 1.67 GB measured on v5e) — which is
-    why the Pallas pipeline DMAs stencil blocks in-kernel instead of
-    pre-gathering."""
+    zeros are only safe for pure accumulators."""
     if sentinel_row is None:
         sent = jnp.zeros((1,) + dense.shape[1:], dense.dtype)
     else:

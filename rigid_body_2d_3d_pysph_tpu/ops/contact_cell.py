@@ -22,14 +22,12 @@ from .kernels import Kernel
 
 _BIG = 1.0e9
 
-# SELECTION einsums (one-hot pick / broadcast of f32 data) must run at
-# HIGHEST precision on TPU: DEFAULT truncates the DATA operand to bf16
-# before the MXU pass, which (a) rounds picked source positions and
-# (b) corrupts lane-index tie-breaks once O*M > 256 (bf16 integers are
-# exact only to 256 — the 3D spill grid has O*M = 2816 lanes).  The
-# ACCUMULATION sums stay at DEFAULT, bit-matching the Pallas kernel's
-# DEFAULT dots (scripts/exp_spill3d.py verifies cross-engine
-# bit-parity on v5e).
+# Every einsum here runs at HIGHEST precision.  At DEFAULT, XLA:GPU may
+# run f32 matrix products in TF32 (10-bit mantissa): the one-hot
+# SELECTION einsums would round picked source positions and lane-index
+# tie-breaks (TF32 integers are exact only to 2048; the 3D spill grid
+# has O*M > 2048 lanes), and the ACCUMULATION sums would lose ~3 decimal
+# digits of the contact normals and distances.
 _EXACT = jax.lax.Precision.HIGHEST
 
 # packed f32 field order
@@ -92,8 +90,8 @@ def contact_normals_cell(scene, grid: CellGrid, cfg: CellGridConfig,
         tmp = jnp.where(gate, tmp, 0.0)
 
         # slot reduction as a one-hot contraction over the source lanes:
-        # [C,M,OM,4] x [C,OM,S] -> [C,M,S,4] runs on the MXU and touches
-        # each [C,M,OM] quantity once (a per-slot loop would re-stream
+        # [C,M,OM,4] x [C,OM,S] -> [C,M,S,4] touches each [C,M,OM]
+        # quantity once (a per-slot loop would re-stream
         # them S times from HBM)
         oh = (s_dem[:, 0, :, None]
               == jnp.arange(S, dtype=s_dem.dtype)[None, None, :]
@@ -101,7 +99,8 @@ def contact_normals_cell(scene, grid: CellGrid, cfg: CellGridConfig,
         quant = jnp.stack([tmp * xij, tmp * yij, tmp * zij, tmp * rij],
                           axis=-1)  # [C, M, OM, 4]
         return jnp.einsum("cmkq,cks->cmsq", quant, oh,
-                          preferred_element_type=tmp.dtype)
+                          preferred_element_type=tmp.dtype,
+                          precision=_EXACT)
 
     acc = map_over_cells(cfg, block, df, di, grid.nbr_slots)  # [NC,M,S,4]
     sx, sy, sz, sw = (acc[..., 0], acc[..., 1], acc[..., 2], acc[..., 3])
@@ -136,7 +135,7 @@ def contact_distance_cell(scene, grid: CellGrid, cfg: CellGridConfig,
         tmp = jnp.where(gate, qf[:, :, None, _FM] / qf[:, :, None, _FRHO]
                         * wij, 0.0)
 
-        # numerator/denominator sums batched over slots via one-hot MXU
+        # numerator/denominator sums batched over slots via one-hot
         # contraction: num_s = n_s . sum_k t*xij_vec (the normal is a
         # per-(dest,slot) constant, so it factors out of the k-sum)
         oh = (s_dem[:, 0, :, None]
@@ -144,7 +143,8 @@ def contact_distance_cell(scene, grid: CellGrid, cfg: CellGridConfig,
               ).astype(tmp.dtype)  # [C, OM, S]
         quant = jnp.stack([tmp, tmp * xij, tmp * yij, tmp * zij], -1)
         sums = jnp.einsum("cmkq,cks->cmsq", quant, oh,
-                          preferred_element_type=tmp.dtype)  # [C,M,S,4]
+                          preferred_element_type=tmp.dtype,
+                          precision=_EXACT)  # [C,M,S,4]
         den = sums[..., 0]
         num = (qcfn[..., 0] * sums[..., 1] + qcfn[..., 1] * sums[..., 2]
                + qcfn[..., 2] * sums[..., 3])
@@ -202,7 +202,7 @@ def contact_pipeline_cell(scene, grid: CellGrid, cfg: CellGridConfig,
 
 
 # ---------------------------------------------------------------------------
-# fused single-pass pipeline (the TPU production path)
+# fused single-pass pipeline (the cell engine's step)
 # ---------------------------------------------------------------------------
 
 def contact_sums_fused(scene, grid: CellGrid, cfg: CellGridConfig,
@@ -221,10 +221,9 @@ def contact_sums_fused(scene, grid: CellGrid, cfg: CellGridConfig,
 
     with ``sum(t1*rij) == sum(t2)`` (the normals' wij-norm equals the
     distance denominator).  Closest-point tracking replaces the per-slot
-    argmin/pick loop with: per-slot min (cheap VPU loop), a one-hot MXU
+    argmin/pick loop with: per-slot min (elementwise loop), a one-hot
     broadcast of the min back to lanes, a first-match mask, and ONE
-    [C,M,OM]x[C,OM,S*6] MXU contraction for the source pick — measured
-    ~3x faster than the two-pass formulation at 100k particles.
+    [C,M,OM]x[C,OM,S*6] contraction for the source pick.
 
     Returns dense per-slot arrays ([NC,M,S]-shaped):
     (cfn_x, cfn_y, cfn_z, wij_sum, dist, min_dist, srcs[...,6]).
@@ -257,7 +256,8 @@ def contact_sums_fused(scene, grid: CellGrid, cfg: CellGridConfig,
                            t2, t2 * xij, t2 * yij, t2 * zij],
                           axis=-1)  # [C, M, OM, 7]
         sums = jnp.einsum("cmkq,cks->cmsq", quant, oh,
-                          preferred_element_type=t1.dtype)  # [C,M,S,7]
+                          preferred_element_type=t1.dtype,
+                          precision=_EXACT)  # [C,M,S,7]
 
         # ---- closest source per slot -------------------------------------
         r_g = jnp.where(gate, rij, _BIG)  # [C, M, OM]

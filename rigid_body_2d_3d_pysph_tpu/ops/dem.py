@@ -85,9 +85,9 @@ def _allocate_slots(free_mask, new_mask):
     """Assign the r-th new contact of each row to its r-th free slot.
     Returns [N,K] slot ids (-1 if table full -> contact dropped).
 
-    TPU note: formulated as a dense [R, K, L] one-hot match (L is the
-    small contact-table width) — XLA scatters serialize on TPU and made
-    the original rank->slot table the dominant cost at 10^5 grains."""
+    Formulated as a dense [R, K, L] one-hot match (L is the small
+    contact-table width): no scatter, so the result does not depend on
+    the order in which updates land."""
     L = free_mask.shape[1]
     free_rank = jnp.cumsum(free_mask.astype(jnp.int32), axis=1) - 1
     n_free = jnp.sum(free_mask, axis=1)
@@ -189,7 +189,7 @@ def lvc_displacement_core(q, s, xij, yij, zij, rij, cand, j, dem_j, dt,
     # found pairs: updated spring; new pairs: register with zero spring.
     # Scatter-free: each (row, slot) has at most one contributing pair
     # (candidate lists are duplicate-free), so a per-slot masked K-sum
-    # reproduces the scatter exactly — XLA scatters serialize on TPU.
+    # reproduces the scatter exactly, in a fixed summation order.
     Lc = tng_x.shape[1]
     sfl = jnp.where(found, sf, -1)
     snl = slot_new  # already -1 where unallocated

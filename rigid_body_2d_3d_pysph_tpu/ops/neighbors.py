@@ -3,7 +3,7 @@
 Replaces PySPH's Cython LinkedList/Octree NNPS (implicit in every
 reference pair loop through ``XIJ/RIJ/WIJ/DWIJ/NBRS``, e.g.
 ``code/rigid_body_common.py:663-690``, ``code/boundary_particles.py:44``)
-with a TPU-native pipeline that runs entirely on device:
+with a fixed-capacity pipeline that runs entirely on device:
 
 1. quantize positions to grid cells of size ``cutoff`` and hash the
    integer cell coordinates into a power-of-two bucket space,
@@ -54,9 +54,8 @@ class NeighborConfig:
     n_buckets: int = 1 << 16  # power of two
     row_chunk: int = 4096  # rows processed per map step (memory bound)
     # compact=True packs candidates into [N, K] via a positional
-    # scatter — good on CPU, but XLA scatters serialize on TPU, so the
-    # default keeps the padded [N, stencil*M] candidate list and lets the
-    # (fully vectorized) pair ops mask it instead.
+    # scatter; the default keeps the padded [N, stencil*M] candidate
+    # list and lets the (fully vectorized) pair ops mask it instead.
     compact: bool = False
 
     @property

@@ -48,9 +48,9 @@ def scatter_to_slots(values, slot, mask, n_slots: int):
     ``d_prop[d_idx * total_no_bodies + s_dem_id] += v``
     (e.g. ``code/rigid_body_common.py:681-690``).
 
-    TPU note: XLA scatter-adds serialize on TPU; since S (the dem entity
-    count) is small and static, this is computed as S dense masked
-    reductions over K — pure VPU work that XLA fuses, no scatters.
+    S (the dem entity count) is small and static, so this is computed
+    as S dense masked reductions over K — elementwise work that XLA
+    fuses, with no scatter and a fixed summation order.
     """
     vals = jnp.where(mask, values, 0.0)
     cols = [jnp.sum(jnp.where(slot == s, vals, 0.0), axis=1)
@@ -62,7 +62,7 @@ def scatter_min_to_slots(values, slot, mask, n_slots: int, init):
     """Per-(particle, slot) minimum of [N, K] pair values; `init` is the
     starting value (reference inits closest-point distance to
     ``4 * spacing0``, ``code/rigid_body_common.py:765``).  Dense per-slot
-    min-reductions (see scatter_to_slots TPU note)."""
+    min-reductions (see scatter_to_slots)."""
     big = jnp.asarray(init, values.dtype)
     vals = jnp.where(mask, values, big)
     cols = [jnp.minimum(jnp.min(jnp.where(slot == s, vals, big), axis=1),

@@ -18,21 +18,19 @@ import jax.numpy as jnp
 
 
 def gather_body_rows(arr, bid, nb: int, valid=None):
-    """``arr[bid]`` for per-body state ``arr [B, ...]`` via a one-hot MXU
-    contraction.  Per-element gathers cost ~7 cycles/element on TPU; the
-    [N,B]x[B,F] matmul form is ~10x faster for the short rows (3/9/S wide)
-    of body state.  Exact: the one-hot row has a single 1, so the sum is
-    the gathered value bit-for-bit.  ``valid=False`` rows return zeros."""
+    """``arr[bid]`` for per-body state ``arr [B, ...]`` via a one-hot
+    [N,B]x[B,F] contraction (B is small: the bodies of one scene).
+    Exact: the one-hot row has a single 1, so the sum is the gathered
+    value bit-for-bit.  ``valid=False`` rows return zeros."""
     n = bid.shape[0]
     oh = bid[:, None] == jnp.arange(nb, dtype=bid.dtype)[None, :]
     if valid is not None:
         oh = oh & valid[:, None]
     ohf = oh.astype(arr.dtype)
     flat = arr.reshape(nb, -1)
-    # HIGHEST precision is required for the exactness promise above:
-    # DEFAULT truncates the data operand to bf16 on the TPU MXU
-    # (measured: rounds gathered xcm/R values; HIGHEST is exact AND
-    # faster at 1M — scripts/dbg_body_gather_prec.py).
+    # HIGHEST precision is required for the exactness promise above: at
+    # DEFAULT, XLA:GPU may run the f32 product in TF32, rounding the
+    # gathered xcm/R values to a 10-bit mantissa.
     out = jnp.einsum("nb,bf->nf", ohf, flat,
                      preferred_element_type=arr.dtype,
                      precision=jax.lax.Precision.HIGHEST)
@@ -73,16 +71,15 @@ def sum_up_external_forces(scene, fx, fy, fz):
     ty = dz * fx - dx * fz
     tz = dx * fy - dy * fx
 
-    # TPU note: a segment_sum lowers to a serializing scatter-add; with
-    # few bodies a one-hot contraction runs on the MXU instead.
+    # With few bodies the per-body sum is a one-hot [N,B]x[N,6]
+    # contraction, which keeps the summation order fixed from run to run
+    # (a scatter-add's order is not).
     oh = ((bid[:, None] == jnp.arange(nb)[None, :]) & rigid[:, None]
           ).astype(fx.dtype)  # [N, B]
     vec = jnp.stack([fx, fy, fz, tx, ty, tz], axis=-1)  # [N, 6]
-    # HIGHEST precision: DEFAULT bf16-truncates the force operand, and
-    # force/torque sums over a settled body cancel almost exactly —
-    # measured 17% relative error on cancelling sums at DEFAULT vs 5e-5
-    # (f32 reassociation level) at HIGHEST, which is also FASTER at 1M
-    # (scripts/dbg_body_gather_prec.py).
+    # HIGHEST precision: force/torque sums over a settled body cancel
+    # almost exactly, so operands rounded to TF32 (the DEFAULT f32
+    # product on the GPU) would leave a large relative error.
     tot = jnp.einsum("nb,nc->bc", oh, vec,
                      preferred_element_type=vec.dtype,
                      precision=jax.lax.Precision.HIGHEST)

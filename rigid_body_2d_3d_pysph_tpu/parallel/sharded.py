@@ -2,7 +2,7 @@
 
 The reference's only in-run parallelism is OpenMP loop-parallelism over
 destination particles (``automate.py:17-19``; SURVEY.md §2.3).  The
-TPU-native scaling axis is the same — particles — mapped onto a 1-D
+scaling axis here is the same — particles — mapped onto a 1-D
 device mesh:
 
 * every ``[N, ...]`` particle field is sharded on axis 0 (``P('p')``),
@@ -10,7 +10,7 @@ device mesh:
   ``segment_sum`` force/torque reduction becomes a per-shard partial sum
   + ``AllReduce`` which XLA inserts automatically,
 * neighbor search gathers by global index; GSPMD turns the remote-row
-  gathers into all-gathers over ICI.
+  gathers into all-gathers over the device interconnect.
 
 We deliberately use the "annotate shardings, let XLA insert collectives"
 recipe (jit with in/out shardings) rather than hand-written

@@ -3,7 +3,7 @@
 This replaces PySPH's Cython ``ParticleArray`` (reference:
 ``get_particle_array`` imports at ``code/rigid_body_3d.py:15``,
 ``add_property(stride=...)`` / ``add_constant`` calls at
-``code/rigid_body_3d.py:729-841``) with a TPU-native design:
+``code/rigid_body_3d.py:729-841``) with an accelerator-native design:
 
 * All named particle arrays of a simulation ("body", "tank", "fluid",
   ...) are concatenated into ONE Scene so a single sorted hash grid and a
@@ -242,7 +242,7 @@ def build_scene(
     Rigid groups get global body indices: each rigid group's local
     ``body_id`` is offset by the number of bodies in preceding rigid
     groups (the reference keeps per-array body state instead:
-    ``code/rigid_body_3d.py:781-828``; merging is the TPU-native
+    ``code/rigid_body_3d.py:781-828``; merging is the single-jit
     equivalent and preserves dem_id slot semantics).
     """
     fdt = config.float_dtype()

@@ -3,7 +3,7 @@
 The reference has no profiling subsystem (SURVEY.md §5: PySPH's solver
 prints per-iteration timing; diagnostics are print statements).  Here we
 provide first-class wall-clock phase timers, a steps/sec meter used by
-the Solver, and a thin wrapper over ``jax.profiler`` for TPU traces.
+the Solver, and a thin wrapper over ``jax.profiler`` for device traces.
 """
 
 from __future__ import annotations

@@ -26,12 +26,11 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "cases"))
-os.environ["RB_TPU_PLATFORM"] = "cpu"
-os.environ["RB_TPU_X64"] = "1"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+os.environ["RB_X64"] = "1"
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp  # noqa: E402

@@ -95,8 +95,8 @@ def test_cell_pipeline_matches_nklist():
 
 
 def test_fused_pipeline_matches_two_pass():
-    """contact_pipeline_cell_fused (one pass over source blocks, MXU
-    closest-point) must reproduce the two-pass cell engine exactly."""
+    """contact_pipeline_cell_fused (one pass over source blocks, one-hot
+    closest-point pick) must reproduce the two-pass cell engine exactly."""
     scene, dx = _scene()
     kernel = QuinticSpline(dim=2)
     cutoff = 3 * 1.3 * dx
@@ -410,3 +410,62 @@ def test_rk2_and_leapfrog_cell_match_nklist():
         np.testing.assert_allclose(np.asarray(sc3c[k]),
                                    np.asarray(sc3n[k]), atol=1e-9,
                                    err_msg="leapfrog " + k)
+
+
+def test_cell_engine_3d_step_matches_nklist():
+    """Full 3D GTVF steps (27-cell stencil, body rotation live) on the
+    cell engine vs the [N,K] engine: same trajectory."""
+    from rigid_body_2d_3d_pysph_tpu.geom import get_3d_block
+    from rigid_body_2d_3d_pysph_tpu.models.rigid_body import (
+        RigidBody3DScheme,
+    )
+
+    dx = 0.05
+    xb, yb, zb = get_3d_block(dx, 0.2, 0.2, 0.2)
+    x = np.concatenate([xb, xb + 0.2 + 0.9 * dx])
+    y = np.concatenate([yb, yb + 0.5 * dx])
+    z = np.concatenate([zb, zb])
+    bid = np.concatenate([np.zeros(len(xb), np.int32),
+                          np.ones(len(xb), np.int32)])
+    # a 3-layer floor slab (a single layer has no outward normal)
+    fx_, fz_ = np.meshgrid(np.arange(-6, 14) * dx, np.arange(-6, 7) * dx)
+    fx_, fz_ = np.tile(fx_.ravel(), 3), np.tile(fz_.ravel(), 3)
+    fy_ = np.repeat(y.min() - 0.9 * dx - dx * np.arange(3), fx_.size // 3)
+    m = 2000 * dx**3
+
+    def build(engine):
+        body = make_group("body", x, y, z, m=m, h=1.2 * dx, rho=2000.0,
+                          rad_s=dx / 2, role=ROLE_RIGID, body_id=bid,
+                          dem_id=bid)
+        wall = make_group("wall", fx_, fy_, fz_, m=m,
+                          h=1.2 * dx, rho=2000.0, rad_s=dx / 2,
+                          role=ROLE_BOUNDARY, dem_id=2)
+        scene = build_scene([body, wall], dim=3, total_no_bodies=3,
+                            spacing0=dx)
+        scheme = RigidBody3DScheme(rigid_bodies=["body"],
+                                   boundaries=["wall"], gy=-9.81, dim=3)
+        scheme.engine = engine
+        if engine == "cell":
+            # small cell chunks keep the [C, M, O*M] f64 blocks small
+            scheme._cell_cfg = cellmod.config_from_positions(
+                np.concatenate([x, fx_]), np.concatenate([y, fy_]),
+                np.concatenate([z, fz_]), 3 * 1.2 * dx, 3, cell_chunk=16)
+        scene = scheme.setup(scene)
+        scene = scheme.set_angular_velocity(
+            scene, np.array([[0.3, -0.2, 0.5], [-0.4, 0.1, 0.2]]))
+        return scheme, scene
+
+    sch_c, s_c = build("cell")
+    sch_n, s_n = build("nklist")
+    step_c, step_n = sch_c.make_step(s_c), sch_n.make_step(s_n)
+    dt = jnp.asarray(5e-5)
+    for _ in range(10):
+        s_c, s_n = step_c(s_c, dt), step_n(s_n, dt)
+    assert not bool(np.asarray(s_c.nbr_overflow))
+    assert int((np.asarray(s_n.overlap) > 0).sum()) > 0
+    for k in ("x", "y", "z", "u", "v", "w", "fx", "fy", "fz"):
+        np.testing.assert_allclose(np.asarray(s_c[k]), np.asarray(s_n[k]),
+                                   atol=1e-9, err_msg=k)
+    for k in ("xcm", "vcm", "omega", "R"):
+        np.testing.assert_allclose(np.asarray(s_c[k]), np.asarray(s_n[k]),
+                                   atol=1e-10, err_msg=k)

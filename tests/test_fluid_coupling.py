@@ -199,6 +199,41 @@ def test_kdkf_tracks_kdk():
                                np.asarray(sc_k.force), atol=3e-5)
 
 
+def test_kdkf_cell_f32_tracks_kdk_nklist_f64():
+    """The GPU configuration of the coupling step (f32, cell engine,
+    fused kdkf) against the other engine's two-build kdk step in f64.
+    The staging differences of ``test_kdkf_tracks_kdk`` dominate: f32
+    rounding adds <= 1e-7 relative on top (measured on the CPU over 5
+    steps: p 8e-4, av 7e-3, u 4e-7, x 4e-8), so the same envelope
+    holds."""
+    def build(engine, ordering):
+        scheme, scene, dx, gy, rho0 = _tank_scene(with_body=True)
+        scheme.engine = engine
+        scheme.gtvf_ordering = ordering
+        return scheme, scene
+
+    sch_f, sc_f = build("cell", "kdkf")
+    sc_f = type(sc_f)({k: (v.astype(jnp.float32)
+                           if v.dtype == jnp.float64 else v)
+                       for k, v in sc_f.fields.items()}, sc_f.meta)
+    sch_k, sc_k = build("nklist", "kdk")
+    step_f = sch_f.make_step(sc_f)
+    step_k = sch_k.make_step(sc_k)
+    for _ in range(5):
+        sc_f = step_f(sc_f, jnp.asarray(1e-4, jnp.float32))
+        sc_k = step_k(sc_k, jnp.asarray(1e-4))
+    assert sc_f.x.dtype == jnp.float32
+    tol = dict(x=1e-8 + 2e-7, y=1e-8 + 2e-7, u=1e-5, v=5e-5, rho=1e-6,
+               p=2e-2, p_fsi=5e-3, arho=3e-4, au=4e-2, av=2e-1, fx=1e-5,
+               fy=1e-5)
+    for k, atol in tol.items():
+        np.testing.assert_allclose(np.asarray(sc_f[k], np.float64),
+                                   np.asarray(sc_k[k]), atol=atol, rtol=0,
+                                   err_msg=k)
+    np.testing.assert_allclose(np.asarray(sc_f.force, np.float64),
+                               np.asarray(sc_k.force), atol=3e-5)
+
+
 def test_kdkf_no_fluid_equals_kdk():
     """With fluids=[] (the stack_of_cylinders_test_1 configuration) the
     kdkf routing must degenerate to the kdk step bit-for-bit."""

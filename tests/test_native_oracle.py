@@ -239,3 +239,86 @@ def test_native_dem_lvc_3d_trajectory_matches_jax():
               "fx", "fy", "fz", "torx", "tory", "torz"):
         np.testing.assert_allclose(out[k], np.asarray(s[k]), atol=1e-10,
                                    err_msg=k)
+
+
+def test_native_gtvf_trajectory_matches_cell_engine():
+    """The independent C++ oracle vs the JAX step on the CELL engine
+    (the GPU default): 60 GTVF steps of the two-cube + wall scene, f64."""
+    from rigid_body_2d_3d_pysph_tpu.models.rigid_body import (
+        RigidBody2DScheme,
+    )
+    from rigid_body_2d_3d_pysph_tpu.native import gtvf_step_n
+
+    dx = 0.05
+    xb, yb = get_2d_block(dx, 0.2, 0.2)
+    x = np.concatenate([xb, xb + 0.2 + 0.6 * dx])
+    y = np.concatenate([yb, yb])
+    bid = np.concatenate([np.zeros(len(xb), np.int32),
+                          np.ones(len(xb), np.int32)])
+    xw = np.arange(-10, 20) * dx
+    yw = np.full(len(xw), yb.min() - 0.7 * dx)
+    body = make_group("body", x, y, m=2000 * dx * dx, h=1.3 * dx,
+                      rho=2000.0, rad_s=dx / 2, role=ROLE_RIGID,
+                      body_id=bid, dem_id=bid)
+    wall = make_group("wall", xw, yw, m=2000 * dx * dx, h=1.3 * dx,
+                      rho=2000.0, rad_s=dx / 2, role=ROLE_BOUNDARY,
+                      dem_id=2)
+    scene = build_scene([body, wall], dim=2, total_no_bodies=3,
+                        spacing0=dx)
+    scheme = RigidBody2DScheme(rigid_bodies=["body"], boundaries=["wall"],
+                               gy=-9.81, dim=2)
+    scheme.engine = "cell"
+    scene = scheme.setup(scene)
+    scene = scheme.set_linear_velocity(
+        scene, np.array([[0.3, 0.0, 0.0], [-0.3, 0.0, 0.0]]))
+
+    dt, n_steps = 1e-4, 60
+    native = gtvf_step_n(scene, kr=scheme.kr, kf=scheme.kf,
+                         fric_coeff=scheme.fric_coeff, gx=0.0, gy=-9.81,
+                         gz=0.0, dt=dt, n_steps=n_steps, two_d=True)
+    step = scheme.make_step(scene)
+    s = scene
+    for _ in range(n_steps):
+        s = step(s, jnp.asarray(dt))
+    assert not bool(np.asarray(s.nbr_overflow))
+    assert int((np.asarray(s.overlap) > 0).sum()) > 0
+    np.testing.assert_allclose(native["xcm"], np.asarray(s.xcm), atol=1e-8)
+    np.testing.assert_allclose(native["vcm"], np.asarray(s.vcm), atol=1e-7)
+    np.testing.assert_allclose(native["omega"], np.asarray(s.omega),
+                               atol=1e-6)
+    np.testing.assert_allclose(native["x"], np.asarray(s.x), atol=1e-8)
+    np.testing.assert_allclose(native["u"], np.asarray(s.u), atol=1e-7)
+    np.testing.assert_allclose(native["fx"], np.asarray(s.fx), rtol=1e-8,
+                               atol=1e-6)
+    np.testing.assert_allclose(native["fy"], np.asarray(s.fy), rtol=1e-8,
+                               atol=1e-6)
+
+
+def test_native_dem_lvc_3d_matches_cell_engine():
+    """15 full 3D DEM steps vs the C++ oracle on the CELL engine (the
+    27-stencil dense path the GPU runs by default)."""
+    import sys
+    sys.path.insert(0, "tests")
+    from test_dem_cell import _grain_scene_3d
+
+    from rigid_body_2d_3d_pysph_tpu.native import dem_lvc_step_n
+
+    scheme, scene = _grain_scene_3d(seed=13)
+    scheme.engine = "cell"
+    step = scheme.make_step(scene)
+    dt = 1e-5
+    s = scene
+    for _ in range(15):
+        s = step(s, jnp.asarray(dt))
+    assert not bool(np.asarray(s.nbr_overflow))
+    assert int(np.asarray(s.total_tng_contacts).sum()) > 0
+
+    mob = np.zeros(scene.n, bool)
+    g = scene.meta.group("grains")
+    mob[g.start:g.stop] = True
+    out = dem_lvc_step_n(scene, mob, scheme.gx, scheme.gy, scheme.gz,
+                         dt, 15)
+    for k in ("x", "y", "z", "u", "v", "w", "wx", "wy", "wz",
+              "fx", "fy", "fz", "torx", "tory", "torz"):
+        np.testing.assert_allclose(out[k], np.asarray(s[k]), atol=1e-10,
+                                   err_msg=k)

@@ -104,7 +104,7 @@ def check_benchmark_4():
        They do: 0.4404/0.0593/0.0181 (JAX f64) vs 0.4413/0.0593/0.0182
        (oracle) — monotone in en, settling round 2's open question
        about the spring-dashpot model.
-    2. The f32 TPU production runs are gated on the stability
+    2. The f32 production runs are gated on the stability
        invariants (fall, bounce, stay inside the tank, settle) with the
        measured heights recorded as data.  The first-bounce height of
        the UNDAMPED penalty contact is not reproducible in f32 (the
